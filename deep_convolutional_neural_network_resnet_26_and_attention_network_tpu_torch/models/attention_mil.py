@@ -1,0 +1,202 @@
+"""Gated attention multiple-instance-learning head over bags of tile features.
+
+Counterpart of ``models/attention_mil.py`` in the JAX package, after the
+reference's Attention model (reference: gbm/model.py:89-264):
+
+    H  = ResNet26(tiles)                               [T, L=80]
+    Hm0, Hz0 = ContextLayer(H)   # lrelu branch, per-bag batchnorm branch
+    A_raw = Linear(L,D) -> tanh -> Linear(D,K)          [T, K=3]
+    gate:  sigmoid(-10*w) * softplus(A_raw) + sigmoid(10*w)   (learnable w, init 0.25)
+    A = L1-normalize(gate, over tiles) -> transpose     [K, T]
+    B = Linear(L,D) -> lrelu -> Linear(D,1)             [T, 1]
+    M = A @ B                                           [K, 1] -> logits [1, K]
+    y_pred = softmax(logits); loss = smoothed CE (smoothing 0.25, class weights)
+
+Bags may be padded with a validity ``mask``; every tile-axis reduction
+counts only valid tiles. The gated pool goes through
+``ops/gated_pool.gated_attention_pool``: the CUDA kernel for tensors on the
+card, its plain version on the CPU (the JAX package holds the two paths to
+1e-6, so there is no switch). This slice ports the eval path; the train
+path (tile subsample, dropout) and gradients come with the training slice,
+so the forward functions run without autograd.
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..ops import gated_pool
+from ..ops import init as I
+from ..ops import loss as L
+from ..ops import nn as N
+from . import resnet
+
+
+@dataclass(frozen=True)
+class MILConfig:
+    """Model hyperparameters (reference: gbm/model.py:120-124)."""
+    L: int = 80            # feature dim into the attention mechanism
+    D: int = 40            # attention hidden dim
+    K: int = 3             # attention maps
+    O: int = 1             # instance-code output nodes
+    n_classes: int = 3
+    smoothing: float = 0.25
+    dropout: float = 0.25
+    train_tile_fraction: float = 0.2
+    stem: str = "conv7"  # "s2d" = space-to-depth stem (same math)
+    class_weights: Optional[Tuple[float, ...]] = None
+    widths: Tuple[int, ...] = resnet.WIDTHS
+    blocks: Tuple[int, ...] = resnet.BLOCKS_PER_STAGE
+
+
+class AttentionMIL(nn.Module):
+    """cnn + context + attention + buffer + gate, with the reference's
+    state-dict names (``context.bn``, ``attention.lin{1,2}``,
+    ``buffer.lin1``, ``buffer.classifier``, ``weight_mask``). Its
+    parameters lie on ``device``: the card unless the CPU (or ``"meta"``)
+    is asked for."""
+
+    def __init__(self, cfg: MILConfig = MILConfig(), device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.cnn = resnet.ResNet26(embed_dim=cfg.L, widths=cfg.widths,
+                                   blocks=cfg.blocks, device=device)
+        # ContextLayer BatchNorm1d without running stats: only its affine
+        # parameters are used, with masked statistics (ops.nn.batch_norm_tiles)
+        self.context = nn.Module()
+        self.context.bn = nn.BatchNorm1d(cfg.L, track_running_stats=False,
+                                         device=device)
+        self.attention = nn.ModuleDict({
+            "lin1": nn.Linear(cfg.L, cfg.D, device=device),
+            "lin2": nn.Linear(cfg.D, cfg.K, device=device)})
+        self.buffer = nn.ModuleDict({
+            "lin1": nn.Linear(cfg.L, cfg.D, device=device),
+            "classifier": nn.Linear(cfg.D, cfg.O, device=device)})
+        self.weight_mask = nn.Parameter(torch.empty(cfg.K, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        cfg = self.cfg
+        self.cnn.reset_parameters(generator)
+        self.context.bn.weight.fill_(1.0)
+        self.context.bn.bias.zero_()
+        a, b = self.attention, self.buffer
+        # attention MLP: tanh-gain kaiming fan_in (name contains 'attention')
+        a["lin1"].weight.copy_(
+            I.linear_kaiming_fan_in(generator, cfg.L, cfg.D, I.TANH_GAIN))
+        a["lin2"].weight.copy_(
+            I.linear_kaiming_fan_in(generator, cfg.D, cfg.K, I.TANH_GAIN))
+        # instance-code MLP: lin1 kaiming lrelu fan_in; 'classifier' xavier
+        b["lin1"].weight.copy_(I.linear_kaiming_fan_in(
+            generator, cfg.L, cfg.D, I.leaky_relu_gain(0.1)))
+        b["classifier"].weight.copy_(
+            I.linear_xavier_normal(generator, cfg.D, cfg.O))
+        for lin in (a["lin1"], a["lin2"], b["lin1"], b["classifier"]):
+            lin.bias.zero_()
+        # learnable per-map gate, init 0.25 (reference: gbm/model.py:153)
+        self.weight_mask.fill_(0.25)
+
+    def forward(self, tiles, label=0, *, mask=None, compute_dtype=None):
+        return apply_attention_mil(self, tiles, label, self.cfg, mask=mask,
+                                   compute_dtype=compute_dtype)
+
+
+def init_attention_mil(generator, cfg: MILConfig = MILConfig(), *,
+                       device=None):
+    """An AttentionMIL on ``device`` (the card by default) with the
+    reference's init drawn from ``generator``."""
+    model = AttentionMIL(cfg, device="meta").to_empty(
+        device=resolve_device(device))
+    model.reset_parameters(generator)
+    return model.eval()
+
+
+def _lin(x, layer):
+    """x [..., in] through an nn.Linear, in the JAX ``x @ w + b`` order."""
+    return N.linear(x, layer.weight.T, layer.bias)
+
+
+@torch.no_grad()
+def attention_pool(model, H, cfg: MILConfig, *, mask=None):
+    """Everything after the CNN (eval): context, gated attention, pooling,
+    logits. H: [T, L] float32 features. Returns a dict of intermediates."""
+    Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
+                             model.context.bn.bias, mask=mask)
+    Hm0 = N.leaky_relu(H)
+
+    a, b = model.attention, model.buffer
+    A_raw = _lin(torch.tanh(_lin(Hz0, a["lin1"])), a["lin2"])      # [T, K]
+    Bterm = _lin(N.leaky_relu(_lin(Hm0, b["lin1"])), b["classifier"])  # [T, O]
+    wm = model.weight_mask
+
+    m_vec = (mask if mask is not None
+             else torch.ones(A_raw.shape[0], device=A_raw.device))
+    Mterm, A_1T, wROIs = gated_pool.gated_attention_pool(
+        A_raw.float().contiguous(), Bterm.float().contiguous(),
+        m_vec.float().contiguous(), wm.float().contiguous())
+
+    # Decorrelation + mean diagnostics (reference: gbm/model.py:216-219)
+    A_raw_m = A_raw * mask[:, None].to(A_raw.dtype) if mask is not None \
+        else A_raw
+    A_2 = N.l2_normalize(A_raw_m, axis=0)                          # [T, K]
+    off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype, device=A_2.device)
+    Aterm_var = ((A_2.T @ A_2) * off_diag).mean()
+    Aterm_mu = 0.5 * (N.masked_mean(A_raw, mask, axis=0) ** 2).sum()
+
+    logits = Mterm.reshape(1, cfg.K * cfg.O)                       # [1, K]
+    return {
+        "Aterm": A_1T, "wROIs": wROIs, "Bterm": Bterm, "Mterm": Mterm,
+        "Aterm_mu": Aterm_mu, "Aterm_var": Aterm_var, "logits": logits,
+    }
+
+
+@torch.no_grad()
+def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
+                        mask=None, compute_dtype=None):
+    """Eval bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask:
+    optional [T] validity (1 = real tile). Returns the reference's 13-key
+    dict."""
+    if mask is None:
+        mask = torch.ones(tiles.shape[0], dtype=torch.float32,
+                          device=tiles.device)
+
+    H = resnet.apply_resnet26(model.cnn, tiles, compute_dtype=compute_dtype,
+                              stem=cfg.stem).float()               # [T, L]
+    KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
+
+    pooled = attention_pool(model, H, cfg, mask=mask)
+    logits = pooled["logits"]
+    y_pred = torch.softmax(logits, dim=1)
+    y_pred_hat = torch.argmax(y_pred)
+
+    weight = (torch.tensor(cfg.class_weights, dtype=torch.float32,
+                           device=logits.device)
+              if cfg.class_weights is not None else None)
+    label = torch.as_tensor(label, dtype=torch.int64,
+                            device=logits.device).reshape(())
+    ce_loss = L.smoothed_ce_loss(logits, label[None],
+                                 num_classes=cfg.n_classes,
+                                 smoothing=cfg.smoothing, weight=weight)
+    error = 1.0 - (y_pred_hat == label).float()
+
+    # Buffer weight-norm diagnostic (reference: gbm/model.py:246)
+    l2 = torch.stack([torch.linalg.norm(model.buffer["lin1"].weight),
+                      torch.linalg.norm(model.buffer["classifier"].weight)
+                      ]).mean()
+    return {
+        "Aterm": pooled["Aterm"], "wROIs": pooled["wROIs"],
+        "Bterm": pooled["Bterm"], "Mterm": pooled["Mterm"], "Fterm": H,
+        "Aterm_mu": pooled["Aterm_mu"], "Aterm_var": pooled["Aterm_var"],
+        "loss": ce_loss, "l2": l2, "KLD": KLD, "y_pred": y_pred,
+        "y_pred_hat": y_pred_hat, "error": error,
+    }
+
+
+def gate_coefficients(model):
+    """sigmoid(10*w) per attention map — the 'coef_a*' stats the training
+    driver logs every epoch (reference: gbm/classify_combined.py:392-394)."""
+    return torch.sigmoid(10.0 * model.weight_mask.detach())

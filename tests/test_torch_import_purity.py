@@ -1,0 +1,75 @@
+"""The port imports no JAX and touches no device at import.
+
+An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
+the JAX package; a fresh interpreter that imports the whole port must
+leave ``jax`` out of ``sys.modules``, CUDA uninitialised, Triton unloaded
+and no kernel library built."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
+JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
+FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "gbmnet")
+
+
+def _port_files():
+    root = os.path.join(_REPO, PORT)
+    out = []
+    for d, _, files in os.walk(root):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_has_modules_to_scan():
+    names = {os.path.relpath(p, os.path.join(_REPO, PORT))
+             for p in _port_files()}
+    for must in ("ops/gated_pool.py", "parallel/inference.py",
+                 "models/attention_mil.py", "data/roibuilder.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, _REPO))
+def test_module_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+_PROBE = f"""
+import os, sys
+import {PORT} as port
+from {PORT} import data, models, ops, parallel, utils
+from {PORT}.ops import _build
+import torch
+assert "jax" not in sys.modules and "jaxlib" not in sys.modules
+assert "{JAX_PKG}" not in sys.modules
+assert not torch.cuda.is_initialized()
+assert "triton" not in sys.modules
+assert not _build._LIBS
+print("PORT_IMPORT_PURE")
+"""
+
+
+def test_import_is_pure_in_fresh_interpreter():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                          text=True, env=env, cwd=_REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "PORT_IMPORT_PURE" in proc.stdout
