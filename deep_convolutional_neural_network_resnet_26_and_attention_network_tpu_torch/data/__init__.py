@@ -1,4 +1,5 @@
-"""Data layer: whole-slide IO, tiling + tissue filtering, the tile cache,
-on-device tile transforms and bag bucketing."""
+"""Data layer: whole-slide IO, tiling + tissue filtering (native C++ or
+torch), the tile cache, on-device tile transforms, bag bucketing and a
+background prefetcher."""
 
-from . import loader, roibuilder, slide_io, tissue, transforms  # noqa: F401
+from . import loader, native, roibuilder, slide_io, tissue, transforms  # noqa: F401

@@ -10,8 +10,10 @@ MISSING -> VALID -> VALID-READY, the same cache files
 
 Tiles are HWC uint8 in the cache; bags come back as [T, res, res, 3]
 float32 NHWC tensors in [-1, 1] on the builder's device. The tissue filter
-of ``build`` runs batched on that device (``data.tissue``).
-``get_train_data`` comes with the training slice.
+of ``build`` is the native C++ one on the host (``data.native``) where
+``g++`` builds it, as in the JAX package, and otherwise the torch filter
+batched on the builder's device (``data.tissue``); both keep the same
+tiles. ``get_train_data`` comes with the training slice.
 """
 
 import os
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import slide_io, tissue, transforms
+from . import native, slide_io, tissue, transforms
 
 ROI_SIZE = 1200          # reference: RoiBuilder.py:51
 # zeros fallback for tile-less slides: the reference returns a fixed
@@ -101,9 +103,15 @@ class RoiBuilder:
             return True
 
         img = slide_io.read_slide(self.params["fullpath"])
-        tiles, coords = tissue.extract_tissue_tiles(
-            img, self.params["roi_size"], self.params["padding"],
-            device=self.device)
+        if native.available():
+            # the C++ filter and gather (threads over tiles) on the host, as
+            # in the JAX package; the same keep flags as the torch filter
+            tiles, coords = native.extract_tissue_tiles_native(
+                img, self.params["roi_size"], self.params["padding"])
+        else:
+            tiles, coords = tissue.extract_tissue_tiles(
+                img, self.params["roi_size"], self.params["padding"],
+                device=self.device)
         # atomic (tmp + os.replace), COOR before DATA: __init__ treats the
         # data cache as the cache-hit marker and immediately reads the
         # coor cache, so a kill between the two writes must leave either
@@ -127,8 +135,8 @@ class RoiBuilder:
         self.params["status"] = "VALID-READY"
 
     def _load_cache(self, with_coords: bool = False, mmap: bool = False):
-        """``mmap=True`` memory-maps the tile stack, so a streaming pass
-        reads one chunk's pages at a time."""
+        """``mmap=True`` memory-maps the tile stack, so a pass over it
+        reads one chunk's pages at a time into reused staging buffers."""
         if not os.path.isfile(self.params["data_cache"]):
             raise RuntimeError(
                 f"RoiBuilder has no cache: {self.params['data_cache']}")
@@ -137,6 +145,25 @@ class RoiBuilder:
         if with_coords:
             return data, np.load(self.params["coor_cache"])
         return data
+
+    def readahead(self):
+        """Ask the kernel to prefetch the raw tile cache's pages.
+
+        The serving daemon's I/O pipeline (``train/serve.py --io_depth``)
+        calls this on its producer thread, so the next slide's disk reads
+        overlap the current slide's device work. POSIX_FADV_WILLNEED is
+        asynchronous and bounded by the kernel's readahead budget. Best
+        effort: does nothing off Linux or on a missing file."""
+        if not hasattr(os, "posix_fadvise"):  # pragma: no cover
+            return
+        try:
+            fd = os.open(self.params["data_cache"], os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_WILLNEED)
+            finally:
+                os.close(fd)
+        except OSError:
+            pass
 
     def _empty_bag(self):
         res = self._resolution or EMPTY_BAG_FALLBACK_RES
@@ -209,16 +236,19 @@ class RoiBuilder:
     def get_validation_data(self):
         """Deterministic bag [T, res, res, 3] (reference: RoiBuilder.py:240-259)."""
         self._require_ready()
-        data = self._load_cache()
+        data = self._load_cache(mmap=True)
         if len(data) == 0:
             return self._empty_bag()
         return self._eval_tiles(data)
 
     def get_inference_data(self):
         """(tiles [T, res, res, 3], coords [T, 2], raw uint8 tiles) — no
-        randomization or capping (reference: RoiBuilder.py:261-284)."""
+        randomization or capping (reference: RoiBuilder.py:261-284). The
+        raw tiles are the cache's read-only memory map: the transform
+        copies them to the device chunk by chunk (``loader.staged_chunks``)
+        instead of reading the whole cache into a fresh host array."""
         self._require_ready()
-        img_data, coords = self._load_cache(with_coords=True)
+        img_data, coords = self._load_cache(with_coords=True, mmap=True)
         if len(img_data) == 0:
             # same zeros fallback as the other getters — one degenerate
             # slide must not sink an interface/heatmap sweep

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import loader
+
 MEAN = 0.5
 STD = 0.5
 
@@ -55,15 +57,14 @@ def eval_transform(tiles_u8, *, resolution: int):
 
 def apply_chunked(fn, tiles_u8: np.ndarray, *, device, chunk: int = 64,
                   **kwargs) -> torch.Tensor:
-    """Run a transform over a large host stack in chunks of ``chunk``
-    tiles: each chunk goes to ``device`` as uint8 (a quarter of the f32
-    bytes), transforms there, and the results are concatenated on the
-    device. Peak memory for the transform's intermediates stays at one
-    chunk."""
-    n = tiles_u8.shape[0]
-    if n == 0:
+    """Run a transform over a large host stack (an array or a memory map)
+    in chunks of ``chunk`` tiles: each chunk goes to ``device`` as uint8 (a
+    quarter of the f32 bytes) through reused pinned staging
+    (``loader.staged_chunks``), transforms there, and the results are
+    concatenated on the device. Peak memory for the transform's
+    intermediates stays at one chunk."""
+    if tiles_u8.shape[0] == 0:
         raise ValueError("empty tile stack")
-    outs = [fn(torch.from_numpy(np.ascontiguousarray(
-                tiles_u8[start:start + chunk])).to(device), **kwargs)
-            for start in range(0, n, chunk)]
+    outs = [fn(part, **kwargs) for _, part in
+            loader.staged_chunks(tiles_u8, chunk, torch.device(device))]
     return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]

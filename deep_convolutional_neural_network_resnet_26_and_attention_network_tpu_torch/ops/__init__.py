@@ -1,5 +1,6 @@
 """Primitives, initializers, losses and the hand-written CUDA kernels.
 
-``gated_pool`` builds its kernel on first launch, never at import."""
+``gated_pool`` and ``u8_stem`` build their kernels on first launch, never
+at import."""
 
-from . import gated_pool, init, loss, nn  # noqa: F401
+from . import gated_pool, init, loss, nn, u8_stem  # noqa: F401

@@ -1,0 +1,141 @@
+"""Fused uint8-ingest ResNet stem: the CUDA kernel and its plain version.
+
+Counterpart of ``ops/pallas_stem.py`` in the JAX package (TPU kernel
+``_stem_kernel``). For uint8 tiles ``x [B, 300, 300, 3]`` and the stem
+conv ``conv1`` (7x7, stride 2, pad 3, 3 -> 20 channels, with bias):
+
+    out[b,i,j,o] = bias[o] + sum_{u,v,c} bf16(W[o,c,u,v])
+                                       * bf16(alpha * x[b,2i+u-3,2j+v-3,c] + beta)
+
+summed in float32, zero-padded, returned as the pre-activation float32
+NHWC ``[B, 150, 150, 20]``. :func:`stem_u8_conv` launches
+``csrc/u8_stem.cu`` for CUDA tensors and takes
+:func:`stem_u8_conv_reference` only for CPU tensors. :func:`u8_stem_extract`
+is the whole extractor on top of it, the counterpart of the composition in
+``tools/exp_stem_pallas.py``; bound with ``functools.partial`` it is a
+``transform_extract`` for ``parallel.inference.classify_slide_streaming``.
+
+As in the JAX package, nothing selects this stem by default: no
+``MILConfig`` field, daemon flag or ``classify_slide`` path turns it on.
+Serving only: both functions run without autograd.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from . import nn as N
+
+H_IN = 300            # the only tile side the kernel takes, as in JAX
+OUT = H_IN // 2       # 150 output rows and columns
+C_OUT = 20            # output channels, fixed by the kernel as in JAX
+_BANDS = 38           # blocks per tile: ceil(150 / 4 rows), csrc/u8_stem.cu
+
+# launches of the CUDA kernel in this process (not of the plain version)
+LAUNCHES = 0
+
+
+def _check(conv1, x_u8):
+    if (x_u8.dtype != torch.uint8 or x_u8.ndim != 4
+            or tuple(x_u8.shape[1:]) != (H_IN, H_IN, 3)):
+        raise ValueError(
+            f"fused stem expects uint8 [B, {H_IN}, {H_IN}, 3]; got "
+            f"{x_u8.dtype} {tuple(x_u8.shape)}")
+    if x_u8.shape[0] < 1:
+        raise ValueError("fused stem needs at least one tile")
+    w = conv1.weight
+    if tuple(w.shape) != (C_OUT, 3, 7, 7) or conv1.bias is None:
+        raise ValueError(
+            f"fused stem expects a 7x7 conv from 3 to {C_OUT} channels with "
+            f"a bias; got weight {tuple(w.shape)}, bias "
+            f"{'none' if conv1.bias is None else tuple(conv1.bias.shape)}")
+    if w.device != x_u8.device:
+        raise ValueError(f"conv1 lies on {w.device} but the tiles on "
+                         f"{x_u8.device}")
+    return x_u8.device
+
+
+@torch.no_grad()
+def stem_u8_conv_reference(conv1, x_u8, *, alpha, beta):
+    """The plain version: ``F.conv2d`` in float32 of the bf16-rounded
+    normalized input with the bf16-rounded weights, plus the float32 bias.
+
+    It matches the kernel, whose products are exact in float32 too, up to
+    the order of the sums (TF32 does not change it: bf16 values are exact
+    in TF32). It differs from the JAX package's ``stem_u8_conv`` in one
+    place: JAX rounds the conv output to bf16 before adding the bias
+    (``pallas_stem.py:102, 194``); here the output stays float32."""
+    xn = (x_u8.float() * alpha + beta).to(torch.bfloat16).float()
+    w = conv1.weight.to(torch.bfloat16).float()
+    out = F.conv2d(xn.permute(0, 3, 1, 2), w, conv1.bias.float(), stride=2,
+                   padding=3)
+    return out.permute(0, 2, 3, 1)
+
+
+def _kernel():
+    fn = _build.load("u8_stem").u8_stem_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(conv1, x_u8, alpha, beta):
+    global LAUNCHES
+    batch = x_u8.shape[0]
+    if batch * _BANDS >= 2**31:
+        raise ValueError(f"B={batch} tiles exceed the kernel's grid")
+    x = x_u8.contiguous()
+    w = conv1.weight.float().contiguous()
+    b = conv1.bias.float().contiguous()
+    fn = _kernel()
+    dev = x.device
+    out = torch.empty((batch, OUT, OUT, C_OUT), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                batch, float(alpha), float(beta), stream)
+    if rc != 0:
+        raise RuntimeError(f"u8_stem kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+@torch.no_grad()
+def stem_u8_conv(conv1, x_u8, *, alpha, beta):
+    """Fused uint8 -> normalize ``x * alpha + beta`` -> conv 7x7/s2/p3 +
+    bias. conv1: the port's stem ``nn.Conv2d`` (20 outputs); x_u8: uint8
+    [B, 300, 300, 3]. Returns the pre-activation float32 NHWC
+    [B, 150, 150, 20] (a ``channels_last`` NCHW tensor once permuted).
+    CUDA tensors go through the kernel (or raise); CPU tensors through the
+    plain version."""
+    device = _check(conv1, x_u8)
+    if device.type == "cuda":
+        return _launch(conv1, x_u8, alpha, beta)
+    if device.type == "cpu":
+        return stem_u8_conv_reference(conv1, x_u8, alpha=alpha, beta=beta)
+    raise ValueError(f"unsupported device {device}")
+
+
+@torch.no_grad()
+def u8_stem_extract(cnn, x_u8, *, alpha, beta, compute_dtype=torch.bfloat16):
+    """uint8 tiles [N, 300, 300, 3] -> float32 features [N, L] through the
+    fused stem, then LeakyReLU and max-pool 3/2/1 in ``compute_dtype``, the
+    ResNet's residual stages, global average pool and ``fc``: the
+    counterpart of ``tools/exp_stem_pallas.py``'s ``fwd_b``. With
+    ``functools.partial`` binding the keywords it is a
+    ``transform_extract``; the serving normalize is ``alpha=2/255,
+    beta=-1``."""
+    h = stem_u8_conv(cnn.conv1, x_u8, alpha=alpha, beta=beta)
+    if compute_dtype is not None:
+        h = h.to(compute_dtype)
+    h = F.max_pool2d(N.leaky_relu(h.permute(0, 3, 1, 2)), 3, 2, 1)
+    for stage in cnn.stages():
+        for block in stage:
+            h = block(h, compute_dtype)
+    h = h.mean(dim=(2, 3))
+    return N.linear(h, cnn.fc.weight.T, compute_dtype=compute_dtype).float()

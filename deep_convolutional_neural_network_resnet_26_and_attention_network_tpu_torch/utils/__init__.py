@@ -1,3 +1,4 @@
-"""Utilities: weight carry-over from the JAX parameter tree."""
+"""Utilities: weight carry-over from the JAX parameter tree and back, and
+the ``.dla`` heatmap writer."""
 
-from . import interop  # noqa: F401
+from . import helpers, interop  # noqa: F401

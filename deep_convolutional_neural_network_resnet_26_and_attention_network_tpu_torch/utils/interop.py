@@ -12,8 +12,10 @@ are the reference's state-dict names (reference: gbm/model.py:114-157,
   ``module.`` segment is stripped here.
 
 Layouts: JAX conv kernels are HWIO and become OIHW; JAX linear weights are
-``[in, out]`` and become ``[out, in]``. The name rules are the port's own
-copy; nothing is imported from the JAX package.
+``[in, out]`` and become ``[out, in]``. ``jax_params_from_module`` goes
+the other way (the checkpoint writer, ``train/checkpoint.py``, needs it).
+The name rules are the port's own copy; nothing is imported from the JAX
+package.
 """
 
 import numpy as np
@@ -78,3 +80,51 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     """Load JAX parameters into ``model`` with ``strict=True``."""
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model
+
+
+def _np(t, layout=None):
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if layout == "conv":
+        a = np.transpose(a, (2, 3, 1, 0))
+    elif layout == "lin":
+        a = a.T
+    return np.array(a, np.float32, order="C")
+
+
+def _resnet_tree(cnn) -> dict:
+    stages = []
+    for stage in cnn.stages():
+        blocks = []
+        for block in stage:
+            p = {c: {"w": _np(getattr(block, c).weight, "conv"),
+                     "b": _np(getattr(block, c).bias)}
+                 for c in ("conv1", "conv2")}
+            if block.downsample is not None:
+                p["downsample"] = {"w": _np(block.downsample[0].weight,
+                                            "conv")}
+            blocks.append(p)
+        stages.append(blocks)
+    return {"conv1": {"w": _np(cnn.conv1.weight, "conv"),
+                      "b": _np(cnn.conv1.bias)},
+            "stages": stages,
+            "fc": {"w": _np(cnn.fc.weight, "lin")}}
+
+
+def jax_params_from_module(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`state_dict_from_jax`: an ``AttentionMIL`` (or a
+    ``ResNet26``) -> the JAX package's nested parameter tree of float32
+    numpy arrays, with JAX layouts (HWIO convs, ``[in, out]`` linears) and
+    JAX key names; ``stages`` is a list of lists of blocks."""
+    if not hasattr(model, "cnn"):
+        return _resnet_tree(model)
+    a, b = model.attention, model.buffer
+    return {
+        "cnn": _resnet_tree(model.cnn),
+        "context": {"gamma": _np(model.context.bn.weight),
+                    "beta": _np(model.context.bn.bias)},
+        "attention": {n: {"w": _np(a[n].weight, "lin"), "b": _np(a[n].bias)}
+                      for n in ("lin1", "lin2")},
+        "buffer": {n: {"w": _np(b[n].weight, "lin"), "b": _np(b[n].bias)}
+                   for n in ("lin1", "classifier")},
+        "weight_mask": _np(model.weight_mask),
+    }

@@ -3,7 +3,7 @@
 An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
 the JAX package; a fresh interpreter that imports the whole port must
 leave ``jax`` out of ``sys.modules``, CUDA uninitialised, Triton unloaded
-and no kernel library built."""
+and no kernel or native library built."""
 
 import ast
 import os
@@ -40,7 +40,10 @@ def test_port_has_modules_to_scan():
     names = {os.path.relpath(p, os.path.join(_REPO, PORT))
              for p in _port_files()}
     for must in ("ops/gated_pool.py", "parallel/inference.py",
-                 "models/attention_mil.py", "data/roibuilder.py"):
+                 "models/attention_mil.py", "data/roibuilder.py",
+                 "ops/u8_stem.py", "data/native.py", "train/serve.py",
+                 "train/checkpoint.py", "train/classify.py",
+                 "utils/helpers.py"):
         assert must in names
 
 
@@ -54,14 +57,16 @@ def test_module_imports_no_jax(path):
 _PROBE = f"""
 import os, sys
 import {PORT} as port
-from {PORT} import data, models, ops, parallel, utils
+from {PORT} import data, models, ops, parallel, train, utils
 from {PORT}.ops import _build
+from {PORT}.data import native
+from {PORT}.train import serve
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules
 assert not torch.cuda.is_initialized()
 assert "triton" not in sys.modules
-assert not _build._LIBS
+assert not _build._LIBS and native._LIB is None and not native._TRIED
 print("PORT_IMPORT_PURE")
 """
 

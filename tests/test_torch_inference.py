@@ -285,3 +285,121 @@ def test_empty_slide_same_on_both_paths(tmp_path, monkeypatch, models):
     p_jax, _, _ = jinf.classify_slide(jp, JCFG, jb, resolution=32,
                                       compute_dtype=None)
     np.testing.assert_allclose(p_once, p_jax, atol=1e-5)
+
+
+def test_transform_extract_default_passed_explicitly_is_the_default(
+        tmp_path, monkeypatch, models):
+    """The hook: passing the default per-chunk program explicitly gives
+    the outputs of passing none, and any (cnn, raw uint8 chunk) -> [N, L]
+    function replaces it."""
+    _, model = models
+    jb, tb = _builders(tmp_path, monkeypatch, _tissue_slide(9, 300),
+                       "h_H&E", 64)
+    tb.build()
+    probs, outs, _ = tinf.classify_slide_streaming(
+        model, TCFG, tb, resolution=32, chunk=5, compute_dtype=None)
+    default = tinf.make_transform_extract(TCFG, resolution=32,
+                                          compute_dtype=None)
+    seen = []
+
+    def spy(cnn, raw_u8):
+        assert cnn is model.cnn and raw_u8.dtype == torch.uint8
+        seen.append(raw_u8.shape[0])
+        return default(cnn, raw_u8)
+
+    probs2, outs2, _ = tinf.classify_slide_streaming(
+        model, TCFG, tb, resolution=32, chunk=5, compute_dtype=None,
+        transform_extract=spy)
+    assert sum(seen) == tb.getsize() and max(seen) == 5
+    np.testing.assert_array_equal(probs2, probs)
+    for k in ("Aterm", "Fterm", "Mterm"):
+        np.testing.assert_array_equal(outs2[k], outs[k])
+
+
+def _small_bags(seed, sizes, res=32):
+    rng = np.random.default_rng(seed)
+    return [np.clip(np.array([140, 60, 170], np.int16)
+                    + rng.integers(-40, 40, (t, res, res, 3)), 0,
+                    255).astype(np.uint8) for t in sizes]
+
+
+def test_classify_slides_batched_matches_jax_and_serial(models):
+    """One extractor call over the group, one pool per slide: the same
+    outputs as JAX's padded batched forward (trimmed) and as the port's
+    one-pass forward of each slide alone."""
+    jp, model = models
+    raw = _small_bags(10, (5, 13, 1))
+    bags = [jtransforms.eval_transform(jnp.asarray(b), resolution=32)
+            for b in raw]
+    jprobs, jouts = jinf.classify_slides_batched(jp, JCFG, bags,
+                                                 compute_dtype=None)
+    probs, outs = tinf.classify_slides_batched(
+        model, TCFG, [np.asarray(b) for b in bags], compute_dtype=None)
+    assert probs.shape == (3, 3)
+    np.testing.assert_allclose(probs, jprobs, atol=1e-5)
+    np.testing.assert_allclose(outs["Aterm_var"],
+                               np.asarray(jouts["Aterm_var"]), atol=1e-5)
+    np.testing.assert_array_equal(outs["y_pred_hat"],
+                                  np.asarray(jouts["y_pred_hat"]).ravel())
+    for i, b in enumerate(bags):
+        T = b.shape[0]
+        np.testing.assert_allclose(outs["Aterm"][i],
+                                   np.asarray(jouts["Aterm"])[i][:, :T],
+                                   atol=1e-5)
+        one = tamil.apply_attention_mil(model, torch.from_numpy(
+            np.array(b)), 0, TCFG)
+        np.testing.assert_allclose(probs[i], one["y_pred"].numpy().ravel(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(outs["Aterm"][i], one["Aterm"].numpy(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(outs["Mterm"][i], one["Mterm"].numpy(),
+                                   atol=1e-5)
+
+    # raw uint8 bags with the transform on the device: the same result
+    infer = tinf.make_batched_infer(TCFG, compute_dtype=None,
+                                    transform_resolution=32)
+    probs_u8, _ = tinf.classify_slides_batched(model, TCFG, raw,
+                                               infer_fn=infer)
+    np.testing.assert_allclose(probs_u8, probs, atol=1e-6)
+    with pytest.raises(ValueError, match="no tiles"):
+        tinf.classify_slides_batched(model, TCFG, [raw[0], raw[0][:0]],
+                                     compute_dtype=None)
+
+
+def test_prefetch_iter_keeps_order_and_raises_producer_errors():
+    assert list(tloader.prefetch_iter(iter(range(50)), depth=3)) == \
+        list(range(50))
+
+    def bad():
+        yield 1
+        raise OSError("disk gone")
+
+    got = []
+    with pytest.raises(OSError, match="disk gone"):
+        for x in tloader.prefetch_iter(bad(), depth=2):
+            got.append(x)
+    assert got == [1]
+    # an early stop joins the producer before control returns
+    it = tloader.prefetch_iter(iter(range(1000)), depth=2)
+    assert next(it) == 0
+    it.close()
+
+
+def test_staged_chunks_cover_the_stack_in_order():
+    """The streaming loop's host staging: every chunk equals its slice of
+    the stack, including the tail, whatever the chunk size; a stack that
+    is not uint8 is refused rather than cast."""
+    raw = np.random.default_rng(11).integers(0, 256, (11, 4, 4, 3),
+                                             dtype=np.uint8)
+    for chunk in (1, 4, 11, 64):
+        seen = []
+        for start, part in tloader.staged_chunks(raw, chunk,
+                                                 torch.device("cpu")):
+            np.testing.assert_array_equal(
+                part.numpy(), raw[start:start + part.shape[0]])
+            seen.append((start, part.shape[0]))
+        assert seen[0][0] == 0 and sum(n for _, n in seen) == 11
+        assert all(n == min(chunk, 11 - s) for s, n in seen)
+    with pytest.raises(TypeError):
+        next(tloader.staged_chunks(raw.astype(np.float32), 4,
+                                   torch.device("cpu")))

@@ -1,0 +1,176 @@
+"""The port's fused uint8 stem against the JAX package's Pallas stem.
+
+On the CPU the port's wrapper takes its plain version (f32 conv of the
+bf16-rounded normalized input with bf16-rounded weights); the JAX stem runs
+its Pallas kernel in interpret mode, as tests/test_pallas_and_inference.py
+runs it. Tolerances:
+
+* plain vs JAX stem: max|diff| <= 5e-3 x max|ref|. JAX rounds the conv
+  output to bf16 before the bias and adds a float32 boundary correction
+  computed with float32 weights, while its products use bf16 weights; the
+  port's output stays float32. One bf16 rounding is up to 2^-8 = 3.9e-3
+  relative.
+* plain vs the float32 conv of the float32-normalized input: 2e-2 x
+  max|ref|, JAX's own bound for its stem (bf16 operands).
+* the whole extractor (``u8_stem_extract`` vs JAX's ``fwd_b`` composition
+  of tools/exp_stem_pallas.py) in bf16: 1e-2 x max|ref|, about five bf16
+  roundings. Both run the residual tail in bf16, and the stems' one-ulp
+  output differences pass through LeakyReLU, max-pool and four bf16
+  stages (measured on this input: 3.2e-3 and 4.4e-3; the stems alone
+  differ by 3.0e-3 and 3.4e-3).
+
+The CUDA kernel itself is held to the plain version on the card by
+chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import conftest  # noqa: F401
+import jax
+import jax.numpy as jnp
+
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.models import (
+    resnet as jresnet,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.ops import (
+    nn as JN,
+    pallas_stem,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.models import (
+    resnet as tresnet,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (
+    u8_stem,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (
+    interop,
+)
+
+WIDTHS = (20, 8, 8, 8)
+BLOCKS = (1, 1, 1, 1)
+CONVENTIONS = [(1 / 255.0, 0.0), (2 / 255.0, -1.0)]
+
+
+@pytest.fixture(scope="module")
+def nets():
+    jp = jresnet.init_resnet26(jax.random.PRNGKey(3), widths=WIDTHS,
+                               blocks=BLOCKS)
+    jp = jax.tree_util.tree_map(np.asarray, jp)
+    cnn = tresnet.ResNet26(widths=WIDTHS, blocks=BLOCKS, device="cpu")
+    cnn.load_state_dict(interop.state_dict_from_jax(jp), strict=True)
+    return jp, cnn.eval()
+
+
+@pytest.fixture(scope="module")
+def tiles():
+    return np.random.default_rng(0).integers(0, 256, (2, 300, 300, 3),
+                                             dtype=np.uint8)
+
+
+@pytest.mark.parametrize("alpha,beta", CONVENTIONS)
+def test_plain_stem_matches_pallas(nets, tiles, alpha, beta):
+    jp, cnn = nets
+    want = np.asarray(pallas_stem.stem_u8_conv(
+        jp["conv1"], jnp.asarray(tiles), alpha=alpha, beta=beta,
+        interpret=True))
+    n = u8_stem.LAUNCHES
+    got = u8_stem.stem_u8_conv(cnn.conv1, torch.from_numpy(tiles),
+                               alpha=alpha, beta=beta)
+    assert u8_stem.LAUNCHES == n  # the CPU path launches no kernel
+    assert tuple(got.shape) == want.shape == (2, 150, 150, 20)
+    assert got.dtype == torch.float32
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= 5e-3 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("alpha,beta", CONVENTIONS)
+def test_plain_stem_matches_f32_conv(nets, tiles, alpha, beta):
+    _, cnn = nets
+    x = torch.from_numpy(tiles).float() * alpha + beta
+    with torch.no_grad():
+        ref = torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), cnn.conv1.weight, cnn.conv1.bias,
+            stride=2, padding=3).permute(0, 2, 3, 1)
+    got = u8_stem.stem_u8_conv(cnn.conv1, torch.from_numpy(tiles),
+                               alpha=alpha, beta=beta)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 2e-2 * scale
+
+
+def test_plain_stem_rounds_operands_to_bf16(nets):
+    """One tile of all-equal pixels away from the border: each output is
+    the bias plus the bf16 input times the sum of the bf16 weights,
+    exactly as the kernel computes it."""
+    _, cnn = nets
+    x = torch.full((1, 300, 300, 3), 77, dtype=torch.uint8)
+    got = u8_stem.stem_u8_conv(cnn.conv1, x, alpha=2 / 255.0, beta=-1.0)
+    xv = torch.tensor(77.0) * (2 / 255.0) + (-1.0)
+    xv = xv.to(torch.bfloat16).float()
+    wsum = cnn.conv1.weight.to(torch.bfloat16).float().sum(dim=(1, 2, 3))
+    want = cnn.conv1.bias + xv * wsum
+    np.testing.assert_allclose(got[0, 75, 75].numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["float_input", "size_299", "conv1_16_out",
+                                  "no_tiles"])
+def test_stem_rejects_what_the_kernel_does_not_take(nets, case):
+    _, cnn = nets
+    conv1 = cnn.conv1
+    x = torch.zeros((1, 300, 300, 3), dtype=torch.uint8)
+    if case == "float_input":
+        x = x.float()
+    elif case == "size_299":
+        x = torch.zeros((1, 299, 299, 3), dtype=torch.uint8)
+    elif case == "conv1_16_out":
+        conv1 = torch.nn.Conv2d(3, 16, 7, 2, 3)
+    else:
+        x = x[:0]
+    with pytest.raises(ValueError, match="fused stem expects|at least one"):
+        u8_stem.stem_u8_conv(conv1, x, alpha=1.0, beta=0.0)
+
+
+def _jax_fwd_b(p, x, alpha, beta):
+    """tools/exp_stem_pallas.py's fwd_b for one batch, from the JAX
+    package's public functions: the stem, bf16 LeakyReLU, max-pool, the
+    residual tail in bf16."""
+    h = pallas_stem.stem_u8_conv(p["conv1"], x, alpha=alpha, beta=beta,
+                                 interpret=True)
+    h = JN.leaky_relu(h.astype(jnp.bfloat16))
+    h = JN.max_pool(h, window=3, stride=2, padding=1)
+    for s, stage in enumerate(p["stages"]):
+        for bi, block in enumerate(stage):
+            stride = 2 if (s > 0 and bi == 0) else 1
+            h = jresnet.apply_block(block, h, stride,
+                                    compute_dtype=jnp.bfloat16)
+    h = JN.global_avg_pool(h)
+    return JN.linear(h, p["fc"]["w"], compute_dtype=jnp.bfloat16)
+
+
+@pytest.mark.parametrize("alpha,beta", CONVENTIONS)
+def test_u8_stem_extract_matches_jax_composition(nets, tiles, alpha, beta):
+    jp, cnn = nets
+    want = np.asarray(_jax_fwd_b(jp, jnp.asarray(tiles), alpha, beta),
+                      np.float32)
+    got = u8_stem.u8_stem_extract(cnn, torch.from_numpy(tiles), alpha=alpha,
+                                  beta=beta, compute_dtype=torch.bfloat16)
+    assert tuple(got.shape) == want.shape == (2, 80)
+    assert got.dtype == torch.float32
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-2 * scale
+
+
+def test_u8_stem_extract_f32_matches_conv7_extractor(nets, tiles):
+    """In float32 the uint8-stem extractor with the serving normalize is
+    the default extractor on the normalized tiles, up to the stem's bf16
+    operands (the JAX stem's 2e-2 bound)."""
+    _, cnn = nets
+    x = torch.from_numpy(tiles)
+    got = u8_stem.u8_stem_extract(cnn, x, alpha=2 / 255.0, beta=-1.0,
+                                  compute_dtype=None)
+    with torch.no_grad():
+        want = tresnet.apply_resnet26(cnn, x.float() * (2 / 255.0) - 1.0)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-2 * scale
