@@ -3,8 +3,11 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the serving path from the sources in this
-checkout (the gated-attention pool and the fused uint8 stem), holds each
-against its plain PyTorch version on the card, drives full-width slide
+checkout (the gated-attention pool and the fused uint8 stem, one ``nvcc``
+each, in parallel; the stem's SASS must hold tensor-core instructions),
+holds each against its plain PyTorch version on the card (the pool also
+at the edges of its partition of T, and bit-identical over two calls),
+drives full-width slide
 serving (``classify_slide`` and ``classify_slide_streaming``) on synthetic
 slides written and cached by the port's own RoiBuilder, serves a manifest
 of slides through the serving daemon (``train.serve.main``) from a
@@ -12,7 +15,10 @@ checkpoint the port wrote, serves the streaming slide through the uint8
 stem (``transform_extract``), checks the outputs, and times the paths with
 CUDA events, the host -> card staging, and the kernels with torch.profiler's
 device durations (each row says where its device time came from), with an
-interleaved stem A/B against cuDNN. Progress (and the daemon's own
+interleaved stem A/B against cuDNN. A kernel's device time is per call,
+summed over the CUDA launches of the call (the pool makes two above
+``gated_pool.POOL_RANGE`` tiles); its launch counts are wrapper calls that
+reached the kernel. Progress (and the daemon's own
 prints) goes to stderr; results go to stdout as JSON lines, each timing
 beside the card's name and power limit. The second-to-last line lists the
 kernels, the last line is the device record.
@@ -24,11 +30,13 @@ caches, the checkpoint and the daemon's outputs are written under
 of JAX.
 """
 
+import concurrent.futures
 import contextlib
 import csv
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -97,15 +105,30 @@ def tile_count(spec):
 
 # every bag the main path pools is one slide's exact tile count, serial or
 # in a --batch group; the kernel is held to plain at each of them, and at
-# a few more (a bag below a warp, K=5/O=2, 2048-2560, a 50k-tile slide)
+# a few more (a bag below a warp, K=5/O=2, 2048-2560, a 50k-tile slide,
+# and the edges of the kernel's partition of T into ranges)
 MAIN_PATH_T = sorted({tile_count(s) for s in (*SLIDES.values(),
                                               *SMALL_SLIDES.values())})
+_R = gated_pool.POOL_RANGE
 POOL_SHAPES = [(t, 3, 1) for t in MAIN_PATH_T] + [
     (64, 3, 1), (100, 3, 1), (7, 5, 2), (2048, 3, 1), (2560, 3, 1),
-    (50000, 3, 1)]
+    (50000, 3, 1), (_R - 1, 3, 1), (_R, 3, 1), (_R + 1, 3, 1),
+    (2 * _R + 1, 3, 1), (2 * _R + 1, 5, 2)]
+# two calls on the same inputs at this T must give bit-identical outputs
+POOL_REPEAT_T = 50000
 # timed: the one-pass slide (the kernels line), the streaming slide, and a
 # 50k-tile slide
 POOL_TIMED_T = (2000, 5000, 50000)
+KERNELS = ("gated_pool", "u8_stem")
+
+
+def tensor_core_instructions(lib):
+    """The count of HMMA and HGMMA instructions in a built library's SASS
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return len(re.findall(r"\bHG?MMA\.", sass))
 
 
 def log(msg):
@@ -154,24 +177,37 @@ def check_pool_kernel():
         if not ok:
             raise AssertionError(f"gated_pool kernel disagrees at {t, k, o}")
         worst = max(worst, *errs)
+    args = pool_inputs(POOL_REPEAT_T, 3, 1, seed=99)
+    first = gated_pool.gated_attention_pool(*args)
+    second = gated_pool.gated_attention_pool(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit({"phase": "pool_repeat", "T": POOL_REPEAT_T,
+          "nblk": gated_pool.pool_partition(POOL_REPEAT_T)[0],
+          "bit_identical": same})
+    if not same:
+        raise AssertionError("two gated_pool calls on the same inputs differ")
     return worst
 
 
 def device_ms(fn, iters, match=None, windows=3):
-    """Mean device time of ``fn`` from torch.profiler over ``iters`` calls,
-    host time between launches excluded. With ``match``, the mean duration
-    of the recorded device activities whose name holds it (one kernel
-    launch per call: the kernel's time per launch); without, the sum of all
-    device activities over ``iters``. The profiler on the H100 host now and
-    then records a launch short, or a whole window empty: a short window is
-    averaged over what it recorded, an empty one is retried, and after
+    """Mean device time of one call of ``fn`` from torch.profiler over
+    ``iters`` calls, host time between launches excluded. With ``match``,
+    the device activities whose name holds it: for each such kernel name,
+    its mean duration times its launches per call (its records over
+    ``iters``, rounded, at least 1), summed over the names, so a call of
+    two launches counts both. Without, the sum of all device activities
+    over ``iters``. The profiler on the H100 host now and then records a
+    launch short, or a whole window empty: a short window still gives each
+    name's mean over what it recorded, an empty one is retried, and after
     ``windows`` empty windows the time comes from CUDA events instead
     (``time_cuda``, which includes launch gaps).
 
     Returns ``(ms, how)``; ``how`` says where the number came from, and is
     printed beside it: ``source`` ("profiler" or "cuda_events"),
-    ``records`` (the device activities it averaged; with ``match``, the
-    launches recorded) and ``calls`` (``iters``)."""
+    ``records`` (the device activities recorded; with ``match``, the
+    launches), ``calls`` (``iters``) and, with ``match``,
+    ``launches_per_call`` (records over calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,24 +219,34 @@ def device_ms(fn, iters, match=None, windows=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and (match is None or match in e.name)]
-        if spans:
-            how = {"source": "profiler", "records": len(spans),
-                   "calls": iters}
-            if match is not None:
-                if len(spans) != iters:
-                    log(f"profiler: {len(spans)} records of {match} for "
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (match is None
+                                                     or match in e.name):
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        records = sum(len(v) for v in by_name.values())
+        if records:
+            how = {"source": "profiler", "records": records, "calls": iters}
+            if match is None:
+                return sum(map(sum, by_name.values())) / 1e3 / iters, how
+            how["launches_per_call"] = records / iters
+            per_call = 0.0
+            for nm, spans in by_name.items():
+                per_call += (sum(spans) / len(spans)
+                             * max(1, round(len(spans) / iters)))
+                if len(spans) % iters:
+                    log(f"profiler: {len(spans)} records of {nm[:60]} for "
                         f"{iters} calls")
-                return sum(spans) / 1e3 / len(spans), how
-            return sum(spans) / 1e3 / iters, how
+            return per_call / 1e3, how
         log(f"profiler: no device activity {match or ''} in a window of "
             f"{iters} calls; retrying")
     log(f"profiler: {windows} empty windows; timing {match or 'the calls'} "
         "with CUDA events instead")
-    return time_cuda(fn, iters), {"source": "cuda_events", "records": 0,
-                                  "calls": iters}
+    how = {"source": "cuda_events", "records": 0, "calls": iters}
+    if match is not None:
+        how["launches_per_call"] = None
+    return time_cuda(fn, iters), how
 
 
 def ms_how(how, prefix="ms"):
@@ -241,22 +287,29 @@ def time_pool(card):
     (``plain_device_ms``, all its kernels together); per call by CUDA events
     over back-to-back calls, which includes what the host adds: raw ctypes
     launches (``host_ms``), the checked wrapper (``wrapper_ms``, what the
-    serving path pays) and the plain version (``plain_ms``)."""
+    serving path pays) and the plain version (``plain_ms``). The floor a
+    latency-bound kernel can reach: the device time of one launch that
+    does nearly nothing (a one-element fill), times the pool's launches
+    per call (``floor_ms``)."""
     rows = {}
     fn = gated_pool._kernel()
+    tiny = torch.zeros(1, device="cuda")
+    launch_floor, how_floor = device_ms(tiny.zero_, 200)
     for t in POOL_TIMED_T:
         args = pool_inputs(t, 3, 1, seed=7)
-        outs = [args[0].new_empty(s) for s in ((3, 1), (3, t), (3, t))]
+        nblk, tiles = gated_pool.pool_partition(t)
+        outs = [args[0].new_empty(s) for s in ((3, 1), (3, t), (3, t),
+                                               (3, nblk, 2))]
         ptrs = [x.data_ptr() for x in args + outs]
         stream = torch.cuda.current_stream().cuda_stream
 
         def raw():
-            return fn(*ptrs, t, 3, 1, stream)
+            return fn(*ptrs, t, 3, 1, tiles, nblk, stream)
 
         def plain():
             return gated_pool.gated_attention_pool_reference(*args)
 
-        ms, how = device_ms(raw, 200, match="gated_pool_kernel")
+        ms, how = device_ms(raw, 200, match="gated_pool_")
         host_ms = time_cuda(raw, 500)
         n = gated_pool.LAUNCHES
         wrapper_ms = time_cuda(
@@ -265,18 +318,23 @@ def time_pool(card):
         plain_device, how_plain = device_ms(plain, 50)
         plain_ms = time_cuda(plain, 200)
         bound, bound_by = pool_bound_ms(t, 3, 1)
-        rows[t] = {"ms": ms, **ms_how(how), "host_ms": host_ms,
+        floor = launch_floor * (1 if nblk == 1 else 2)
+        rows[t] = {"ms": ms, **ms_how(how), "nblk": nblk,
+                   "floor_ms": floor, **ms_how(how_floor, "floor_ms"),
+                   "host_ms": host_ms,
                    "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                    "plain_device_ms": plain_device,
                    **ms_how(how_plain, "plain_device_ms"),
-                   "bound_ms": bound, "bound_by": bound_by}
-        emit({"phase": "pool_time", "T": t, "K": 3, "O": 1,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "bound_share": bound / ms}
+        emit({"phase": "pool_time", "T": t, "K": 3, "O": 1, "nblk": nblk,
               "kernel_device_us": 1e3 * ms, **ms_how(how),
               "kernel_host_us": 1e3 * host_ms,
               "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
               "plain_device_us": 1e3 * plain_device,
               **ms_how(how_plain, "plain_device_ms"), "bound_us": 1e3 * bound,
-              "bound_by": bound_by, "library_us": None, **card})
+              "bound_by": bound_by, "bound_share": bound / ms,
+              "floor_us": 1e3 * floor, "library_us": None, **card})
     return rows
 
 
@@ -425,11 +483,10 @@ def stem_ab(cnn, card, rounds=4, iters=5):
     row = {"ms": ms, **ms_how(how), "wrapper_ms": wrapper_ms,
            "plain_ms": plain_ms, "plain_device_ms": plain_device,
            **ms_how(how_plain, "plain_device_ms"), "bound_ms": bound,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "library_device_ms": library_device,
+           "bound_by": bound_by, "bound_share": bound / ms,
+           "library_ms": library_ms, "library_device_ms": library_device,
            **ms_how(how_library, "library_device_ms")}
-    emit({"phase": "stem_time", "B": b, **row,
-          "bound_share": bound / ms, **card})
+    emit({"phase": "stem_time", "B": b, **row, **card})
     return row
 
 
@@ -758,13 +815,17 @@ def main():
     # phase 1: build every kernel of the path from the checkout's sources
     t0 = time.perf_counter()
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
-    _build.build("gated_pool")
-    _build.build("u8_stem")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
     for kernel, text in _build.BUILD_LOG.items():
         log(f"nvcc {kernel}:\n{text.strip()}")
+    hmma = tensor_core_instructions(libs["u8_stem"])
     emit({"phase": "build", "kernels": sorted(_build.BUILD_LOG),
-          "seconds": build_s})
+          "seconds": build_s, "u8_stem_tensor_core_sass": hmma})
+    if hmma < 1:
+        raise AssertionError("the u8_stem kernel has no tensor-core "
+                             "(HMMA/HGMMA) instruction")
 
     # phase 2: each kernel against its plain version, on the card
     cfg = amil.MILConfig()
@@ -887,6 +948,9 @@ def main():
         "launches": sum(launches.values()), "max_abs_err": max_err,
         **pool_times[t_main], "library_ms": None,
         "shape": {"T": t_main, "K": 3, "O": 1},
+        "ms_by_T": {t: r["ms"] for t, r in pool_times.items()},
+        "bound_share_by_T": {t: r["bound_share"]
+                             for t, r in pool_times.items()},
         "launches_by_path": launches}, {
         "name": "stem_u8_conv", "route": "cuda",
         "source": f"{PORT}/csrc/u8_stem.cu",

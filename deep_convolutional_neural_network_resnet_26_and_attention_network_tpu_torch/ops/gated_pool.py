@@ -11,7 +11,9 @@ gate ``weight_mask [K]``:
 
 :func:`gated_attention_pool` launches ``csrc/gated_pool.cu`` for CUDA
 tensors and takes :func:`gated_attention_pool_reference` only for CPU
-tensors. The kernel has no cap on T. It is forward-only: the closed-form
+tensors. The kernel has no cap on T: :func:`pool_partition` cuts the tile
+axis into ranges, one block per (range, map), and a second launch
+finishes once the ranges' partial sums are in. It is forward-only: the closed-form
 backward (``pallas_pool.py:118-149``) arrives with the training slice, so
 inputs that require grad are refused.
 """
@@ -23,8 +25,22 @@ import torch
 from . import _build
 from . import nn as N
 
-# launches of the CUDA kernel in this process (not of the plain version)
+# tiles a block of the kernel owns (csrc/gated_pool.cu: 512 threads, four
+# tiles each); a bag of at most this many tiles takes one launch
+POOL_RANGE = 2048
+
+# wrapper calls that launched the CUDA kernel in this process, one or two
+# launches each (not the plain version's calls)
 LAUNCHES = 0
+
+
+def pool_partition(t):
+    """The kernel's cut of ``t`` tiles: ``(nblk, range)``, block j owning
+    tiles ``[j * range, min(t, (j + 1) * range))``. ``nblk == 1`` (one
+    launch, no scratch) exactly when ``t <= POOL_RANGE``."""
+    if t < 1:
+        raise ValueError("need T >= 1 tiles")
+    return -(-t // POOL_RANGE), POOL_RANGE
 
 
 def gated_attention_pool_reference(a_raw, b, mask, weight_mask):
@@ -62,7 +78,7 @@ def _check(a_raw, b, mask, weight_mask):
 def _kernel():
     fn = _build.load("gated_pool").gated_pool_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -80,16 +96,24 @@ def _launch(a_raw, b, mask, weight_mask):
     o = b.shape[1]
     if t >= 2**31 // max(k, o):
         raise ValueError(f"T={t} too large for 32-bit row offsets")
+    if k >= 2**16:
+        raise ValueError(f"K={k} attention maps exceed the kernel's grid")
+    nblk, tiles = pool_partition(t)
     fn = _kernel()
     dev = a_raw.device
     m = torch.empty((k, o), dtype=torch.float32, device=dev)
     a1t = torch.empty((k, t), dtype=torch.float32, device=dev)
     wrois = torch.empty((k, t), dtype=torch.float32, device=dev)
+    # the ranges' partial sums, for the second launch; none with one range
+    scratch = (torch.empty((k, nblk, 1 + o), dtype=torch.float32, device=dev)
+               if nblk > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a_raw.data_ptr(), b.data_ptr(), mask.data_ptr(),
                 weight_mask.data_ptr(), m.data_ptr(), a1t.data_ptr(),
-                wrois.data_ptr(), t, k, o, stream)
+                wrois.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), t, k, o,
+                tiles, nblk, stream)
     if rc != 0:
         raise RuntimeError(f"gated_pool kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -31,7 +31,8 @@ from . import nn as N
 H_IN = 300            # the only tile side the kernel takes, as in JAX
 OUT = H_IN // 2       # 150 output rows and columns
 C_OUT = 20            # output channels, fixed by the kernel as in JAX
-_BANDS = 38           # blocks per tile: ceil(150 / 4 rows), csrc/u8_stem.cu
+N_PAD = 24            # the kernel's GEMM width: three n8 tiles
+K_PAD = 256           # its depth: 16 taps (a, b) x 16 space-to-depth channels
 
 # launches of the CUDA kernel in this process (not of the plain version)
 LAUNCHES = 0
@@ -74,6 +75,30 @@ def stem_u8_conv_reference(conv1, x_u8, *, alpha, beta):
     return out.permute(0, 2, 3, 1)
 
 
+def _k_index(device):
+    """For each (u, v, c) of the 7x7x3 window, in that order, its row in the
+    kernel's K: ``(a*4 + b)*16 + rp*6 + cp*3 + c`` with ``(a, rp) = divmod(u,
+    2)`` and ``(b, cp) = divmod(v, 2)``, the space-to-depth order of the JAX
+    package's ``pallas_stem._w2_index_maps``. Made on ``device``, so that
+    packing copies nothing from the host."""
+    u, v, c = torch.meshgrid(torch.arange(7, device=device),
+                             torch.arange(7, device=device),
+                             torch.arange(3, device=device), indexing="ij")
+    k = ((u // 2) * 4 + v // 2) * 16 + (u % 2) * 6 + (v % 2) * 3 + c
+    return k.reshape(-1)
+
+
+def pack_weights(weight):
+    """OIHW ``[20, 3, 7, 7]`` conv weights -> the kernel's B operand
+    ``[24, 256]`` bf16: row o holds output channel o's 147 taps at
+    :func:`_k_index`'s rows, zeros elsewhere (the K padding and rows
+    20-23, the N padding), so no padding slot multiplies a live value."""
+    w2 = torch.zeros((N_PAD, K_PAD), dtype=torch.float32, device=weight.device)
+    w2[:C_OUT, _k_index(weight.device)] = (
+        weight.detach().float().permute(0, 2, 3, 1).reshape(C_OUT, -1))
+    return w2.to(torch.bfloat16)
+
+
 def _kernel():
     fn = _build.load("u8_stem").u8_stem_forward
     if fn.argtypes is None:
@@ -86,11 +111,9 @@ def _kernel():
 def _launch(conv1, x_u8, alpha, beta):
     global LAUNCHES
     batch = x_u8.shape[0]
-    if batch * _BANDS >= 2**31:
-        raise ValueError(f"B={batch} tiles exceed the kernel's grid")
     x = x_u8.contiguous()
-    w = conv1.weight.float().contiguous()
-    b = conv1.bias.float().contiguous()
+    w = pack_weights(conv1.weight)
+    b = conv1.bias.detach().float().contiguous()
     fn = _kernel()
     dev = x.device
     out = torch.empty((batch, OUT, OUT, C_OUT), dtype=torch.float32,

@@ -114,3 +114,26 @@ def test_cuda_request_without_card_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("gated_pool")
+
+
+@pytest.mark.parametrize("t", [1, gated_pool.POOL_RANGE - 1,
+                               gated_pool.POOL_RANGE,
+                               gated_pool.POOL_RANGE + 1,
+                               2 * gated_pool.POOL_RANGE + 1, 50000])
+def test_pool_partition_covers_every_tile_once(t):
+    """The kernel's ranges cover [0, T) exactly once, in order, none empty;
+    one range (one launch, no scratch) exactly when T fits one."""
+    nblk, tiles = gated_pool.pool_partition(t)
+    assert tiles == gated_pool.POOL_RANGE
+    covered = np.zeros(t, np.int64)
+    for j in range(nblk):
+        lo, hi = j * tiles, min(t, (j + 1) * tiles)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+    assert (nblk == 1) == (t <= gated_pool.POOL_RANGE)
+
+
+def test_pool_partition_refuses_an_empty_bag():
+    with pytest.raises(ValueError):
+        gated_pool.pool_partition(0)

@@ -174,3 +174,50 @@ def test_u8_stem_extract_f32_matches_conv7_extractor(nets, tiles):
         want = tresnet.apply_resnet26(cnn, x.float() * (2 / 255.0) - 1.0)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-2 * scale
+
+
+def _emulate_kernel_gemm(conv1, x_u8, alpha, beta):
+    """The CUDA kernel's arithmetic in plain torch: space-to-depth planes of
+    the zero-bordered, normalized bf16 input (12 channels padded to 16),
+    the 16 tap shifts (a, b) side by side as K = 256, times the packed
+    ``[24, 256]`` weights, the first 20 columns plus the bias."""
+    n = x_u8.shape[0]
+    xn = (x_u8.float() * alpha + beta).to(torch.bfloat16).float()
+    xp = torch.nn.functional.pad(xn, (0, 0, 3, 3, 3, 3))       # [n,306,306,3]
+    p = xp.reshape(n, 153, 2, 153, 2, 3).permute(0, 1, 3, 2, 4, 5)
+    p = torch.nn.functional.pad(p.reshape(n, 153, 153, 12), (0, 4, 0, 3, 0, 3))
+    cols = torch.cat([p[:, a:a + 150, b:b + 150] for a in range(4)
+                      for b in range(4)], dim=-1)              # [n,150,150,256]
+    w2 = u8_stem.pack_weights(conv1.weight).float()
+    assert tuple(w2.shape) == (u8_stem.N_PAD, u8_stem.K_PAD)
+    out = cols @ w2.T
+    return out[..., :u8_stem.C_OUT] + conv1.bias.detach()
+
+
+@pytest.mark.parametrize("alpha,beta", CONVENTIONS)
+def test_packed_gemm_matches_plain_stem(nets, tiles, alpha, beta):
+    """The kernel's K order and packing compute the stem: the emulated GEMM
+    equals the plain version to 1e-5 x max|ref| (the same exact bf16
+    products, summed in another order)."""
+    _, cnn = nets
+    x = torch.from_numpy(tiles)
+    with torch.no_grad():
+        got = _emulate_kernel_gemm(cnn.conv1, x, alpha, beta)
+    want = u8_stem.stem_u8_conv_reference(cnn.conv1, x, alpha=alpha,
+                                          beta=beta)
+    scale = float(want.abs().max())
+    assert tuple(got.shape) == tuple(want.shape) == (2, 150, 150, 20)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_packed_weights_match_pallas_prep(nets):
+    """Rows 0-19 of the packed weights are the JAX kernel's ``_prep_w2`` of
+    the same (HWIO) weights; rows 20-23, the N padding, are zero."""
+    jp, cnn = nets
+    got = u8_stem.pack_weights(cnn.conv1.weight)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(pallas_stem._prep_w2(jnp.asarray(jp["conv1"]["w"])),
+                      np.float32)
+    assert want.shape == (20, 256)
+    np.testing.assert_array_equal(got[:20].float().numpy(), want)
+    assert not torch.any(got[20:])
