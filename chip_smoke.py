@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from the sources in this
-checkout (the gated-attention pool and the fused uint8 stem, one ``nvcc``
-each, in parallel; the stem's SASS must hold tensor-core instructions),
-holds each against its plain PyTorch version on the card (the pool also
-at the edges of its partition of T, and bit-identical over two calls),
-drives full-width slide
+Builds every CUDA kernel of the serving and training paths from the
+sources in this checkout (the gated-attention pool, forward and backward,
+and the fused uint8 stem, one ``nvcc`` each, in parallel; the stem's SASS
+must hold tensor-core instructions), holds each against its plain PyTorch
+version on the card (the pool also at the edges of its partition of T,
+and bit-identical over two calls), drives full-width slide
 serving (``classify_slide`` and ``classify_slide_streaming``) on synthetic
 slides written and cached by the port's own RoiBuilder, serves a manifest
 of slides through the serving daemon (``train.serve.main``) from a
@@ -15,7 +15,15 @@ checkpoint the port wrote, serves the streaming slide through the uint8
 stem (``transform_extract``), checks the outputs, and times the paths with
 CUDA events, the host -> card staging, and the kernels with torch.profiler's
 device durations (each row says where its device time came from), with an
-interleaved stem A/B against cuDNN. A kernel's device time is per call,
+interleaved stem A/B against cuDNN. Then it trains at full width in bf16
+through the trainer's CLI (``train.classify.main``: two epochs of one
+5-bag Adam window on a six-slide cohort reusing the serving slides'
+caches, validation at epoch 0), resumes epoch 1 from the epoch-0
+checkpoint in a fresh process and compares, runs ``--test_only``, holds a
+full-width f32 bag gradient on the card to the CPU's with the same
+injected noise, and times a training bag (data and model), a window, the
+peak memory with and without ``--remat``, a traced window's idle share and
+the pool's backward kernel. A kernel's device time is per call,
 summed over the CUDA launches of the call (the pool makes two above
 ``gated_pool.POOL_RANGE`` tiles); its launch counts are wrapper calls that
 reached the kernel. Progress (and the daemon's own
@@ -33,6 +41,7 @@ of JAX.
 import concurrent.futures
 import contextlib
 import csv
+import dataclasses
 import functools
 import json
 import os
@@ -51,6 +60,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (  # noqa: E402
+    dataset,
+    loader,
     roibuilder,
     slide_io,
     transforms,
@@ -69,10 +80,15 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (  # noqa: E402
     inference,
+    steps,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (  # noqa: E402
     checkpoint,
+    classify,
     serve,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (  # noqa: E402
+    interop,
 )
 
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
@@ -96,6 +112,16 @@ SLIDES = {"onepass": (45, 45, 300, 25, 32),
           "roi1200": (3, 3, 1200, 1, 4)}
 # four small slides (200 tiles) for the daemon's --batch 4
 SMALL_SLIDES = {f"small{i}": (15, 15, 300, 25, 16) for i in range(4)}
+# the training cohort: six slides in the GHP_<n>_<x>_H&E.scn convention,
+# each reusing a serving slide's tile cache (the 5000-tile one twice, so
+# whichever slide fold 0 holds out, a bag above the 2500-tile cap trains),
+# with their clusters for the csv label sheet
+TRAIN_COHORT = {"GHP_1_A": ("stream", "A"), "GHP_2_B": ("stream", "B"),
+                "GHP_3_C": ("onepass", "C"), "GHP_5_E": ("small0", "A"),
+                "GHP_6_F": ("small1", "B"), "GHP_7_G": ("small2", "C")}
+TRAIN_ROI = 300
+TRAIN_ARGS = ["--roi_size", str(TRAIN_ROI), "--resolution", "300",
+              "--accum", "5", "--fold", "0", "--seed", "0"]
 
 
 def tile_count(spec):
@@ -103,12 +129,19 @@ def tile_count(spec):
     return rows * cols - n_background
 
 
-# every bag the main path pools is one slide's exact tile count, serial or
-# in a --batch group; the kernel is held to plain at each of them, and at
-# a few more (a bag below a warp, K=5/O=2, 2048-2560, a 50k-tile slide,
-# and the edges of the kernel's partition of T into ranges)
-MAIN_PATH_T = sorted({tile_count(s) for s in (*SLIDES.values(),
-                                              *SMALL_SLIDES.values())})
+_SPECS = {**SLIDES, **SMALL_SLIDES}
+# a training bag pools the 20 % subsample of at most 2500 tiles
+TRAIN_POOL_T = sorted({
+    max(1, int(min(tile_count(_SPECS[src]), roibuilder.TRAIN_TILE_CAP)
+               * amil.MILConfig().train_tile_fraction))
+    for src, _ in TRAIN_COHORT.values()})
+# every bag the main paths pool is one slide's exact tile count, serial or
+# in a --batch group, or a training bag's subsample; the kernel is held to
+# plain at each of them, and at a few more (a bag below a warp, K=5/O=2,
+# 2048-2560, a 50k-tile slide, and the edges of the kernel's partition of
+# T into ranges)
+MAIN_PATH_T = sorted({tile_count(s) for s in _SPECS.values()}
+                     | set(TRAIN_POOL_T))
 _R = gated_pool.POOL_RANGE
 POOL_SHAPES = [(t, 3, 1) for t in MAIN_PATH_T] + [
     (64, 3, 1), (100, 3, 1), (7, 5, 2), (2048, 3, 1), (2560, 3, 1),
@@ -119,6 +152,13 @@ POOL_REPEAT_T = 50000
 # timed: the one-pass slide (the kernels line), the streaming slide, and a
 # 50k-tile slide
 POOL_TIMED_T = (2000, 5000, 50000)
+# the backward kernel against its plain version: one tile, a few bag sizes,
+# the edges of the partition of T, a 50k-tile bag and every training bag's
+# subsample
+POOL_BWD_T = sorted({1, 200, 500, 2047, 2048, 2049, 4097, 50000}
+                    | set(TRAIN_POOL_T))
+# timed: the largest training bag (the kernels line) and a 50k-tile bag
+POOL_BWD_TIMED_T = (500, 50000)
 KERNELS = ("gated_pool", "u8_stem")
 
 
@@ -335,6 +375,122 @@ def time_pool(card):
               **ms_how(how_plain, "plain_device_ms"), "bound_us": 1e3 * bound,
               "bound_by": bound_by, "bound_share": bound / ms,
               "floor_us": 1e3 * floor, "library_us": None, **card})
+    return rows
+
+
+def pool_backward_case(t, seed, only_dm, all_masked):
+    """Inputs, the kernel's forward A1T and the cotangents of one backward
+    case on the card (dA1T and dwROIs None with ``only_dm``, the training
+    path's pattern)."""
+    args = pool_inputs(t, 3, 1, seed, all_masked=all_masked)
+    g = torch.Generator().manual_seed(seed + 1)
+    cots = [torch.randn((3, 1), generator=g)] + [
+        None if only_dm else torch.randn((3, t), generator=g)
+        for _ in range(2)]
+    a1t = gated_pool.gated_attention_pool(*args)[1]
+    return args, a1t, [None if c is None else c.cuda() for c in cots]
+
+
+def check_pool_backward():
+    """The backward kernel vs its plain version on the card, at every T of
+    POOL_BWD_T, with all three cotangents random and with only dM, with
+    part of the mask zero and with all of it zero: max error per output
+    <= 1e-5 x max|ref|. Then two calls at T = 50000 must be bit-identical.
+    Returns the worst absolute error."""
+    worst = 0.0
+    n_fwd, n_bwd = gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES
+    for i, t in enumerate(POOL_BWD_T):
+        for only_dm in (False, True):
+            for all_masked in (False, True):
+                args, a1t, cots = pool_backward_case(t, 300 + i, only_dm,
+                                                     all_masked)
+                got = gated_pool.gated_attention_pool_backward(
+                    *args, a1t, *cots)
+                torch.cuda.synchronize()
+                want = gated_pool.gated_attention_pool_backward_reference(
+                    *args, a1t, *cots)
+                errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+                refs = [float(w.abs().max()) for w in want]
+                ok = all(e <= 1e-5 * r for e, r in zip(errs, refs))
+                emit({"phase": "pool_backward_vs_plain", "T": t, "K": 3,
+                      "O": 1, "cotangents": "dM" if only_dm else "all",
+                      "mask": "zero" if all_masked else "part",
+                      "err_dA_raw": errs[0], "err_dB": errs[1],
+                      "err_dw": errs[2], "max_abs_ref": refs,
+                      "tol_rel": 1e-5, "ok": ok})
+                if not ok:
+                    raise AssertionError(
+                        f"gated_pool backward kernel disagrees at T={t}, "
+                        f"only_dm={only_dm}, all_masked={all_masked}")
+                worst = max(worst, *errs)
+    args, a1t, cots = pool_backward_case(POOL_REPEAT_T, 99, False, False)
+    first = gated_pool.gated_attention_pool_backward(*args, a1t, *cots)
+    second = gated_pool.gated_attention_pool_backward(*args, a1t, *cots)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit({"phase": "pool_backward_repeat", "T": POOL_REPEAT_T,
+          "nblk": gated_pool.pool_partition(POOL_REPEAT_T)[0],
+          "bit_identical": same})
+    if not same:
+        raise AssertionError("two gated_pool backward calls on the same "
+                             "inputs differ")
+    # comparison launches are not the main path's
+    gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES = n_fwd, n_bwd
+    return worst
+
+
+def pool_bwd_bound_ms(t, k, o):
+    """Least time on the card for the training path's backward (dM only):
+    A_raw, B, mask, w, A1T and dM read once, dA_raw, dB and dw written
+    once, over the memory rate; or its float32 operations (da1 2O, dgated
+    2, softplus ~4, sigmoid ~4, dA_raw 3, the four sums 6 per (t, k); dB
+    2K per (t, o)) over the peak."""
+    bytes_moved = (4 * (t * k + t * o + t + k + k * t + k * o)
+                   + 4 * (t * k + t * o + k))
+    ops = t * k * (2 * o + 19) + 2 * t * o * k
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def time_pool_backward(card):
+    """At each T of POOL_BWD_TIMED_T, with the training path's cotangents
+    (dM only): the backward kernel's device time per call (``ms``, summed
+    over its one or three launches), the plain chain's device time
+    (``plain_device_ms``), both per call by CUDA events (``wrapper_ms``,
+    ``plain_ms``) and the bound."""
+    rows = {}
+    n_bwd = gated_pool.BWD_LAUNCHES
+    for t in POOL_BWD_TIMED_T:
+        args, a1t, cots = pool_backward_case(t, 7, True, False)
+
+        def kernel():
+            return gated_pool.gated_attention_pool_backward(*args, a1t,
+                                                            *cots)
+
+        def plain():
+            return gated_pool.gated_attention_pool_backward_reference(
+                *args, a1t, *cots)
+
+        ms, how = device_ms(kernel, 200, match="gated_pool_bwd")
+        wrapper_ms = time_cuda(kernel, 200)
+        plain_device, how_plain = device_ms(plain, 50)
+        plain_ms = time_cuda(plain, 200)
+        bound, bound_by = pool_bwd_bound_ms(t, 3, 1)
+        rows[t] = {"ms": ms, **ms_how(how), "wrapper_ms": wrapper_ms,
+                   "plain_ms": plain_ms, "plain_device_ms": plain_device,
+                   **ms_how(how_plain, "plain_device_ms"),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "bound_share": bound / ms}
+        emit({"phase": "pool_backward_time", "T": t, "K": 3, "O": 1,
+              "nblk": gated_pool.pool_partition(t)[0],
+              "kernel_device_us": 1e3 * ms, **ms_how(how),
+              "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
+              "plain_device_us": 1e3 * plain_device,
+              **ms_how(how_plain, "plain_device_ms"), "bound_us": 1e3 * bound,
+              "bound_by": bound_by, "bound_share": bound / ms,
+              "library_us": None, **card})
+    gated_pool.BWD_LAUNCHES = n_bwd  # timing launches are not the path's
     return rows
 
 
@@ -799,6 +955,339 @@ def serve_u8_stem(model, cfg, big, p_big, p32_big, card):
     return stem_launches, pool_launches
 
 
+# ---------------------------------------------------------------- training
+def train_cohort(root):
+    """The training cohort under ``root``: a placeholder file per slide of
+    TRAIN_COHORT (the JAX CLI tests' convention) whose tile cache in
+    $CACHE_DIR links to a serving slide's, and a csv cluster sheet. Returns
+    the trainer's data flags."""
+    slides = os.path.join(root, "slides")
+    os.makedirs(slides)
+    rows = [["id", ""], ["hdr", "Actual Cluster Designation"]]
+    for name, (src, cluster) in TRAIN_COHORT.items():
+        with open(os.path.join(slides, f"{name}_H&E.scn"), "wb") as f:
+            f.write(b"fake")
+        for kind in ("data", "coor"):
+            target = os.path.join(
+                CACHE, f"{kind}_{src}_H&E_rois_size{TRAIN_ROI}_hsvcut_v3.npy")
+            if not os.path.isfile(target):
+                raise AssertionError(f"no tile cache for {src}: {target}")
+            os.symlink(target, os.path.join(
+                CACHE, f"{kind}_{name}_H&E_rois_size{TRAIN_ROI}_hsvcut_v3.npy"))
+        rows.append([name, cluster])
+    sheet = os.path.join(root, "clusters.csv")
+    with open(sheet, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return ["--data_root", root, "--image_dir", "slides", "--label_sheet",
+            sheet]
+
+
+def run_trainer(argv):
+    """``train.classify.main(argv)`` on the card, its prints on stderr."""
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = classify.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"classify.main({argv}) returned {rc}")
+
+
+def read_summary(run, epoch):
+    with open(os.path.join(run, f"{epoch:04d}summary.json")) as f:
+        return json.load(f)
+
+
+def checkpoint_gap(path_a, path_b):
+    """The largest difference between two checkpoints' parameters and
+    between their Adam moments, beside the largest parameter."""
+    a, b = checkpoint.load_raw(path_a), checkpoint.load_raw(path_b)
+    if sorted(a) != sorted(b):
+        raise AssertionError("the two checkpoints hold different keys")
+
+    def gap(prefix):
+        keys = [k for k in a if k.startswith(prefix)]
+        return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                   for k in keys)
+
+    return {"param_max_abs_diff": gap("classifier/"),
+            "param_max_abs": max(float(np.abs(a[k]).max()) for k in a
+                                 if k.startswith("classifier/")),
+            "moment_max_abs_diff": gap("optimizer/"),
+            "bit_identical": all(np.array_equal(a[k], b[k]) for k in a)}
+
+
+def train_main_path(flags, runs, card):
+    """The trainer's CLI at full width, bf16: epochs 0-1 (one 5-bag window
+    each, validation at epoch 0) with the pool kernels' launches counted
+    and every bag size they pool recorded; then epoch 1 again from the
+    epoch-0 checkpoint (``--ckpt auto``) in a fresh process, compared with
+    the uninterrupted run; then ``--test_only`` from the epoch-1
+    checkpoint. Returns (forward launches, backward launches)."""
+    common = [*TRAIN_ARGS, *flags, "--output_root", runs]
+    seen = {"forward": set(), "backward": set()}
+    real = gated_pool._launch, gated_pool._launch_backward
+
+    def record(fn, key):
+        def launch(a_raw, *rest):
+            seen[key].add(int(a_raw.shape[0]))
+            return fn(a_raw, *rest)
+        return launch
+
+    gated_pool._launch = record(real[0], "forward")
+    gated_pool._launch_backward = record(real[1], "backward")
+    gated_pool.LAUNCHES = gated_pool.BWD_LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        run_trainer(["--tag", "U", "--epoch_start", "0", "--epoch_end", "1",
+                     *common])
+        wall = time.perf_counter() - t0
+    finally:
+        gated_pool._launch, gated_pool._launch_backward = real
+    fwd, bwd = gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES
+    run_u = os.path.join(runs, "run_U")
+    s0 = read_summary(run_u, 0)
+    split = next(f for f in os.listdir(run_u)
+                 if f.startswith("training_validation_testing_data"))
+    with open(os.path.join(run_u, split)) as f:
+        train_paths = json.load(f)["train_paths"]
+    # each training bag's tiles after the cap, and after the subsample
+    bag_tiles = [min(tile_count(_SPECS[TRAIN_COHORT[
+        os.path.basename(p).split("_H&E")[0]][0]]),
+        roibuilder.TRAIN_TILE_CAP) for p in train_paths]
+    cnn_tiles = [max(1, int(t * amil.MILConfig().train_tile_fraction))
+                 for t in bag_tiles]
+    missing = [k for k in ("train_loss", "train_err", "valid_loss",
+                           "valid_acc", "coef_a1", "model_max_weights")
+               if k not in s0]
+    unchecked = {"forward": sorted(seen["forward"] - set(MAIN_PATH_T)),
+                 "backward": sorted(seen["backward"] - set(POOL_BWD_T))}
+    emit({"phase": "train_checks", "epochs": [0, 1], "train_bags":
+          len(train_paths), "pool_forward_launches": fwd,
+          "pool_backward_launches": bwd,
+          "pooled_T": {k: sorted(v) for k, v in seen.items()},
+          "train_loss_epoch0": s0["train_loss"],
+          "valid_loss_epoch0": s0["valid_loss"],
+          "input_stall_fraction": s0["input_stall_fraction"],
+          "missing_summary_keys": missing, "unchecked_T": unchecked})
+    if missing or not (np.isfinite(s0["train_loss"])
+                       and np.isfinite(s0["valid_loss"])):
+        raise AssertionError(f"epoch 0's summary is not right: {missing}")
+    if not os.path.isfile(checkpoint.checkpoint_path(run_u, 1)):
+        raise AssertionError("epoch 1 wrote no checkpoint (non-finite loss)")
+    if fwd < 1 or bwd != 2 * len(train_paths):
+        raise AssertionError(f"pool launches on the training path: forward "
+                             f"{fwd}, backward {bwd}")
+    if unchecked["forward"] or unchecked["backward"]:
+        raise AssertionError("the trainer pooled bags whose size the pool "
+                             f"kernels were not held to plain at: {unchecked}")
+    emit({"phase": "train_time_epoch0", "compute_dtype": "bfloat16",
+          "train_secs": s0["train_secs"], "bag_tiles": bag_tiles,
+          "tiles_per_s": sum(bag_tiles) / s0["train_secs"],
+          "cnn_tiles_per_s": sum(cnn_tiles) / s0["train_secs"],
+          "two_epochs_wall_s": wall, **card})
+
+    # resume epoch 1 from the epoch-0 checkpoint in a fresh process
+    run_r = os.path.join(runs, "run_R")
+    os.makedirs(run_r)
+    shutil.copy(checkpoint.checkpoint_path(run_u, 0), run_r)
+    env = dict(os.environ, CACHE_DIR=CACHE,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PORT}.train.classify", "--tag", "R",
+         "--ckpt", "auto", "--epoch_start", "1", "--epoch_end", "1",
+         *common], cwd=ROOT, env=env, stdout=sys.stderr, stderr=sys.stderr,
+        timeout=600, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"the resumed trainer exited {proc.returncode}")
+    gap = checkpoint_gap(checkpoint.checkpoint_path(run_u, 1),
+                         checkpoint.checkpoint_path(run_r, 1))
+    ok = gap["param_max_abs_diff"] <= 1e-5 * gap["param_max_abs"]
+    emit({"phase": "train_resume", **gap, "tol_rel": 1e-5,
+          "process_wall_s": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError("the resumed epoch 1 differs from the "
+                             "uninterrupted run's beyond tolerance")
+
+    run_trainer(["--tag", "T", "--test_only", "--ckpt",
+                 checkpoint.checkpoint_path(run_u, 1), "--epoch_start", "1",
+                 *common])
+    st = read_summary(os.path.join(runs, "run_T"), 1)
+    emit({"phase": "train_test_only", "valid_loss": st["valid_loss"],
+          "valid_err": st["valid_err"],
+          "valid_eval_mode": st["valid_eval_mode"]})
+    if not np.isfinite(st["valid_loss"]) or "valid_acc" not in st:
+        raise AssertionError("--test_only gave no finite validation loss")
+    return fwd, bwd
+
+
+GRAD_RES, GRAD_TILES, GRAD_CANDIDATES = 64, 40, 16
+
+
+def bag_grads(model, tiles, scores, keep):
+    """The f32 bag gradient (no compute dtype) with injected noise, as JAX
+    parameter paths -> host arrays, and the loss."""
+    model.zero_grad(set_to_none=True)
+    outs = steps.make_bag_grad(model.cfg)(
+        model, tiles, torch.ones(tiles.shape[0], device=tiles.device), 1,
+        scores=scores, keep=keep)
+    return float(outs["loss"]), checkpoint._flatten(
+        interop.jax_params_from_module(model, lambda p: p.grad))
+
+
+def grad_gap(got, want):
+    """The worst leaf's max abs difference over max(1, max|g|)."""
+    return max((float(np.abs(got[k] - g).max())
+                / max(1.0, float(np.abs(g).max())), k) for k, g in want.items())
+
+
+def train_grad_card_vs_cpu(builder):
+    """A full-width f32 bag gradient (TF32 off) on the card against the
+    CPU's, with the same weights and injected noise: every leaf within
+    1e-4 x max(1, max|g|).
+
+    The gradient of this model is not smooth: a LeakyReLU pre-activation
+    within rounding of 0 takes the other slope on the other device, and at
+    300 px a bag holds millions of them, so a rounding-sized change of the
+    input moves the CPU's own gradient beyond 1e-4 (``at_300px`` reports
+    both gaps). The check is held on
+    a bag whose CPU gradient is shown stable: among GRAD_CANDIDATES bags of
+    GRAD_TILES distinct synthetic tiles at GRAD_RES px (8 through the CNN),
+    the first whose gradient moves by at most 1e-5 under three random 1e-6
+    relative changes of its tiles. At 300 px (40 tiles of the one-pass
+    slide) the card's gap is reported beside the CPU's own under such a
+    change, and not held."""
+    cfg = amil.MILConfig()
+    model = amil.init_attention_mil(torch.Generator().manual_seed(3), cfg)
+    cpu_model = amil.AttentionMIL(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    k = max(1, int(GRAD_TILES * cfg.train_tile_fraction))
+
+    def noise(rng):
+        return (torch.from_numpy(rng.gumbel(size=GRAD_TILES)
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.random((k, cfg.L)) < 1.0 - cfg.dropout))
+
+    def nudged(tiles, rng):
+        return tiles * (1.0 + 1e-6 * torch.from_numpy(
+            rng.standard_normal(tuple(tiles.shape)).astype(np.float32)))
+
+    chosen = None
+    for c in range(GRAD_CANDIDATES):
+        rng = np.random.default_rng(300 + c)
+        base = rng.integers([120, 40, 150], [160, 80, 190],
+                            (GRAD_TILES, 1, 1, 3))
+        raw = np.clip(base + rng.integers(-40, 40, (GRAD_TILES, 300, 300, 3)),
+                      0, 255).astype(np.uint8)
+        tiles = transforms.eval_transform(torch.from_numpy(raw),
+                                          resolution=GRAD_RES)
+        scores, keep = noise(rng)
+        loss_cpu, g_cpu = bag_grads(cpu_model, tiles, scores, keep)
+        cpu_gaps = [grad_gap(bag_grads(cpu_model, nudged(tiles, rng), scores,
+                                       keep)[1], g_cpu)[0] for _ in range(3)]
+        if max(cpu_gaps) <= 1e-5:
+            chosen = c
+            break
+    if chosen is None:
+        raise AssertionError(f"no bag among {GRAD_CANDIDATES} has a CPU "
+                             "gradient stable to 1e-5")
+    loss_card, g_card = bag_grads(model, tiles.cuda(), scores, keep)
+    worst, worst_key = grad_gap(g_card, g_cpu)
+
+    # at 300 px: reported beside the CPU's own gap under a 1e-6 change
+    rng = np.random.default_rng(5)
+    raw = np.load(builder.params["data_cache"], mmap_mode="r")[:GRAD_TILES]
+    tiles = transforms.eval_transform(torch.from_numpy(raw.copy()),
+                                      resolution=300)
+    scores, keep = noise(rng)
+    _, g300_cpu = bag_grads(cpu_model, tiles, scores, keep)
+    _, g300_card = bag_grads(model, tiles.cuda(), scores, keep)
+    gap300 = grad_gap(g300_card, g300_cpu)
+    self300 = grad_gap(bag_grads(cpu_model, nudged(tiles, rng), scores,
+                                 keep)[1], g300_cpu)
+    emit({"phase": "train_grad_card_vs_cpu", "dtype": "float32",
+          "tiles": GRAD_TILES, "cnn_tiles": k, "resolution": GRAD_RES,
+          "candidate": chosen, "cpu_gaps_under_1e-6_change": cpu_gaps,
+          "loss_card": loss_card, "loss_cpu": loss_cpu,
+          "worst_leaf": worst_key, "worst_err_over_max1_g": worst,
+          "tol": 1e-4, "ok": worst <= 1e-4,
+          "at_300px": {"card_vs_cpu": gap300[0], "leaf": gap300[1],
+                       "cpu_under_1e-6_change": self300[0],
+                       "cpu_leaf": self300[1]}})
+    if worst > 1e-4:
+        raise AssertionError(f"the card's bag gradient differs from the "
+                             f"CPU's at {worst_key}: {worst}")
+
+
+def train_times(flags, runs, card):
+    """A training bag's data time (gather + copy to the card +
+    train_transform) and model time (forward + backward) on the largest
+    training slide (2500 tiles after the cap), median of 3; a 5-bag window
+    through the trainer's loader with the optimizer step, median of 3; the
+    peak device memory of a bag's step with and without remat; one traced
+    window."""
+    args = classify.build_argparser().parse_args(
+        ["--tag", "TIME", *TRAIN_ARGS, *flags, "--output_root", runs])
+    out = os.path.join(runs, "run_TIME")
+    os.makedirs(out)
+    ds = dataset.GHPSingleBagDatasetSimple(
+        output_dir=out, root_dir=args.data_root, image_dir=args.image_dir,
+        label_sheet=args.label_sheet, roi_size=args.roi_size, seed=args.seed)
+    ds.load_new(n_folds=6, n_fold_selection=args.fold)
+    cfg = classify.make_config(args, ds.GetClassWeights())
+    driver = classify.Driver(args, cfg, out)
+    ds.NewResolution(args.resolution)
+    big = max(ds.train_slide_builders, key=lambda b: b.getsize())
+    big.reseed_augment(0, 0, 0)
+    s_data = timed(big.get_train_data)
+    bag = big.get_train_data()
+    mask = torch.ones(bag.shape[0], device=bag.device)
+
+    def bag_step(grad_fn=driver.grad_fn):
+        return grad_fn(driver.model, bag, mask, 0, driver.bag_generator(0, 0))
+
+    s_model = timed(bag_step)
+    peaks = {}
+    for remat in (False, True):
+        grad_fn = steps.make_bag_grad(dataclasses.replace(cfg, remat=remat),
+                                      compute_dtype=driver.compute_dtype)
+        driver.model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bag_step(grad_fn)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(), base)
+    s_model_remat = timed(lambda: bag_step(steps.make_bag_grad(
+        dataclasses.replace(cfg, remat=True),
+        compute_dtype=driver.compute_dtype)))
+    driver.model.zero_grad(set_to_none=True)
+
+    def window():
+        ds.train()
+        for tiles, m, label in loader.sample_data(
+                ds, image_size=args.resolution, shuffle=True, seed=1):
+            driver.grad_fn(driver.model, tiles, m, label,
+                           driver.bag_generator(0, 0))
+        steps.apply_updates(driver.optimizer, 1e-5)
+
+    s_window = timed(window)
+    emit({"phase": "train_time", "compute_dtype": "bfloat16",
+          "bag_tiles": int(bag.shape[0]),
+          "bag_model_tiles": max(1, int(bag.shape[0]
+                                        * cfg.train_tile_fraction)),
+          "bag_data_s": s_data, "bag_model_s": s_model,
+          "bag_model_remat_s": s_model_remat,
+          "window_bags": len(ds.train_slide_builders), "window_s": s_window,
+          "peak_mem_gb": peaks[False][0] / 1e9,
+          "peak_mem_remat_gb": peaks[True][0] / 1e9,
+          "step_mem_gb": (peaks[False][0] - peaks[False][1]) / 1e9,
+          "step_mem_remat_gb": (peaks[True][0] - peaks[True][1]) / 1e9,
+          **card})
+    del bag
+    trace("train window (5 bags + Adam step)", window, card)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -821,8 +1310,12 @@ def main():
     for kernel, text in _build.BUILD_LOG.items():
         log(f"nvcc {kernel}:\n{text.strip()}")
     hmma = tensor_core_instructions(libs["u8_stem"])
+    # the pool's library carries its forward and its backward
+    entries = [gated_pool._kernel(e).__name__
+               for e in ("gated_pool_forward", "gated_pool_backward")]
     emit({"phase": "build", "kernels": sorted(_build.BUILD_LOG),
-          "seconds": build_s, "u8_stem_tensor_core_sass": hmma})
+          "gated_pool_entries": entries, "seconds": build_s,
+          "u8_stem_tensor_core_sass": hmma})
     if hmma < 1:
         raise AssertionError("the u8_stem kernel has no tensor-core "
                              "(HMMA/HGMMA) instruction")
@@ -831,6 +1324,7 @@ def main():
     cfg = amil.MILConfig()
     model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg)
     max_err = check_pool_kernel()
+    bwd_err = check_pool_backward()
     stem_err = check_stem_kernel(model.cnn.conv1)
 
     # phase 3: full-width serving on synthetic slides
@@ -936,6 +1430,18 @@ def main():
         stem_launches, launches["classify_slide_streaming_u8_stem"] = \
             serve_u8_stem(model, cfg, big, p_big, p32_big, card)
         stem_row = stem_ab(model.cnn, card)
+
+        # training at full width through the trainer's CLI, on a cohort
+        # that reuses the serving slides' caches (the daemon built the
+        # small ones)
+        train_root = os.path.join(CACHE, "train")
+        flags = train_cohort(train_root)
+        runs = os.path.join(train_root, "runs")
+        launches["train_classify"], bwd_launches = train_main_path(
+            flags, runs, card)
+        train_grad_card_vs_cpu(one)
+        train_times(flags, runs, card)
+        bwd_times = time_pool_backward(card)
     finally:
         shutil.rmtree(CACHE, ignore_errors=True)
 
@@ -958,7 +1464,18 @@ def main():
         "launches": stem_launches, "max_abs_err": stem_err, **stem_row,
         "shape": {"B": STEM_AB_TILES, "H": 300, "W": 300, "C": 3},
         "launches_by_path": {"classify_slide_streaming_u8_stem":
-                             stem_launches}}]})
+                             stem_launches}}, {
+        "name": "gated_attention_pool_backward", "route": "cuda",
+        "source": f"{PORT}/csrc/gated_pool.cu",
+        "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
+        "launches": bwd_launches, "max_abs_err": bwd_err,
+        **bwd_times[POOL_BWD_TIMED_T[0]], "library_ms": None,
+        "shape": {"T": POOL_BWD_TIMED_T[0], "K": 3, "O": 1,
+                  "cotangents": "dM"},
+        "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
+        "bound_share_by_T": {t: r["bound_share"]
+                             for t, r in bwd_times.items()},
+        "launches_by_path": {"train_classify": bwd_launches}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,14 @@
 """Data layer: whole-slide IO, tiling + tissue filtering (native C++ or
-torch), the tile cache, on-device tile transforms, bag bucketing and a
-background prefetcher."""
+torch), the tile cache, on-device tile transforms, bag bucketing, the
+training bag loader and prefetcher, label sheets and the slide dataset."""
 
-from . import loader, native, roibuilder, slide_io, tissue, transforms  # noqa: F401
+from . import (  # noqa: F401
+    accessors,
+    dataset,
+    loader,
+    native,
+    roibuilder,
+    slide_io,
+    tissue,
+    transforms,
+)

@@ -13,7 +13,10 @@ float32 NHWC tensors in [-1, 1] on the builder's device. The tissue filter
 of ``build`` is the native C++ one on the host (``data.native``) where
 ``g++`` builds it, as in the JAX package, and otherwise the torch filter
 batched on the builder's device (``data.tissue``); both keep the same
-tiles. ``get_train_data`` comes with the training slice.
+tiles. ``get_train_data`` draws its augmentation from two streams that
+``reseed_augment`` pins: a numpy generator for the 2500-tile cap, the JAX
+package's own, so both packages pick the same tiles, and a CPU
+``torch.Generator`` for the crop offsets and flips.
 """
 
 import os
@@ -25,6 +28,7 @@ from .._device import resolve_device
 from . import native, slide_io, tissue, transforms
 
 ROI_SIZE = 1200          # reference: RoiBuilder.py:51
+TRAIN_TILE_CAP = 2500    # reference: RoiBuilder.py:230
 # zeros fallback for tile-less slides: the reference returns a fixed
 # zeros(20, 3, 128, 128) (RoiBuilder.py:236); here the spatial size follows
 # the ARMED resolution, as in the JAX package (PARITY.md)
@@ -42,11 +46,16 @@ class RoiBuilder:
             the reference so downstream manifest writers keep working.
         device: where bags are built and the tissue filter runs (the card
             unless ``"cpu"`` is asked for).
+
+    The training streams start unseeded; ``reseed_augment`` pins them.
     """
 
     def __init__(self, path: str, params: dict, *, loud: bool = False,
                  device=None):
         self.device = resolve_device(device)
+        self._rng = np.random.default_rng()
+        self._train_gen = torch.Generator().manual_seed(
+            int(self._rng.integers(0, 2**31 - 1)))
         self.params = params
         self.params["fullpath"] = path
         self.params["basename"] = os.path.split(path)[1].split(".")[0]
@@ -77,6 +86,16 @@ class RoiBuilder:
         if self.loud:
             print(f"RoiBuilder[{self.params['basename']}] "
                   f"status={self.params['status']} ntiles={self.params['ntiles']}")
+
+    def reseed_augment(self, *entropy: int):
+        """Pin both training streams (the tile cap's and the crop/flip
+        augmentation's) to ``entropy``. The trainer calls this per (seed,
+        epoch, builder) so a run resumed from a checkpoint replays the
+        uninterrupted run's augmentation exactly."""
+        ss = np.random.SeedSequence(list(entropy))
+        self._rng = np.random.default_rng(ss)
+        self._train_gen = torch.Generator().manual_seed(
+            int(ss.generate_state(1)[0] & 0x7FFFFFFF))
 
     # ------------------------------------------------------------------
     # Generic accessors (reference: RoiBuilder.py:89-102)
@@ -176,6 +195,40 @@ class RoiBuilder:
                 "transform not armed (status=[{0}]); call "
                 "update_resolution_and_buffer() first".format(
                     self.params["status"]))
+
+    def train_pad(self) -> int:
+        """The crop jitter's zero pad: ``params['train_pad']`` when set (0
+        turns the pad and crop off; the flips stay), else the reference's
+        100 px at roi 1200 (RoiBuilder.py:195), scaled to the tile size."""
+        pad = self.params.get("train_pad")
+        if pad is None:
+            pad = max(1, round(self.params["roi_size"] * 100 / 1200))
+        return int(pad)
+
+    def get_train_data(self):
+        """Augmented bag [T <= 2500, res, res, 3] float32 in [-1, 1] on the
+        builder's device (reference: RoiBuilder.py:215-238): a random
+        2500 of the cached tiles when there are more (a sorted gather off
+        the memory map, which reads only their pages), then pad, random
+        crop, random flips, resize and normalize on the device."""
+        self._require_ready()
+        data = self._load_cache(mmap=True)
+        if data.shape[0] > TRAIN_TILE_CAP:
+            idx = self._rng.choice(data.shape[0], TRAIN_TILE_CAP,
+                                   replace=False)
+            data = np.asarray(data[np.sort(idx)])
+        if len(data) == 0:
+            return self._empty_bag()
+        n, pad = len(data), self.train_pad()
+        offsets = torch.randint(0, 2 * pad + 1, (n, 2),
+                                generator=self._train_gen)
+        flip_h = torch.rand(n, generator=self._train_gen) < 0.5
+        flip_v = torch.rand(n, generator=self._train_gen) < 0.5
+        return transforms.apply_chunked(
+            transforms.train_transform, data, device=self.device,
+            per_tile=(offsets, flip_h, flip_v),
+            roi_size=self.params["roi_size"], resolution=self._resolution,
+            pad=pad)
 
     # resolution-keyed eval-tile cache: the eval transform is deterministic,
     # so its f32 output is cached per (slide, roi_size, resolution), and the

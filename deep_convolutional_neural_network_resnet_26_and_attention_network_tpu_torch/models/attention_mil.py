@@ -14,11 +14,17 @@ reference's Attention model (reference: gbm/model.py:89-264):
 
 Bags may be padded with a validity ``mask``; every tile-axis reduction
 counts only valid tiles. The gated pool goes through
-``ops/gated_pool.gated_attention_pool``: the CUDA kernel for tensors on the
-card, its plain version on the CPU (the JAX package holds the two paths to
-1e-6, so there is no switch). This slice ports the eval path; the train
-path (tile subsample, dropout) and gradients come with the training slice,
-so the forward functions run without autograd.
+``ops/gated_pool.gated_attention_pool``: the CUDA kernels for tensors on
+the card, their plain versions on the CPU (the JAX package holds the two
+paths to 1e-6, so there is no switch), forward and closed-form backward.
+
+``train=True`` is the training forward: a 20 % subsample of the valid tiles
+(Gumbel top-k, ``_subsample``) and dropout on the instance-code branch,
+with autograd on; only ``loss`` carries a gradient, every other output is
+detached, as the JAX package's ``stop_gradient`` does. Its noise is either
+injected (``scores`` [T], ``keep`` [k, L] boolean), which the tests use to
+feed both packages the same noise, or drawn from a ``torch.Generator``.
+Eval runs without autograd.
 """
 
 from dataclasses import dataclass
@@ -46,6 +52,7 @@ class MILConfig:
     smoothing: float = 0.25
     dropout: float = 0.25
     train_tile_fraction: float = 0.2
+    remat: bool = False  # recompute resnet blocks in the backward pass
     stem: str = "conv7"  # "s2d" = space-to-depth stem (same math)
     class_weights: Optional[Tuple[float, ...]] = None
     widths: Tuple[int, ...] = resnet.WIDTHS
@@ -120,13 +127,47 @@ def _lin(x, layer):
     return N.linear(x, layer.weight.T, layer.bias)
 
 
-@torch.no_grad()
-def attention_pool(model, H, cfg: MILConfig, *, mask=None):
-    """Everything after the CNN (eval): context, gated attention, pooling,
-    logits. H: [T, L] float32 features. Returns a dict of intermediates."""
+def gumbel_scores(generator, n: int):
+    """``n`` standard Gumbel draws (``jax.random.gumbel``'s distribution)
+    from a CPU ``torch.Generator``."""
+    u = torch.rand(n, generator=generator, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def dropout_keep(generator, shape, rate: float):
+    """Boolean keep mask of ``shape``, True with probability ``1 - rate``
+    (``jax.random.bernoulli(rng, 1 - rate)``), from a CPU generator."""
+    return torch.rand(shape, generator=generator) < 1.0 - rate
+
+
+def _subsample(tiles, mask, fraction, scores):
+    """Random subsample of the VALID tiles (train-time only), after the JAX
+    package's ``_subsample`` with its Gumbel draws given as ``scores`` [T].
+
+    ``k_static = max(1, int(T * fraction))`` candidates are the top scores
+    among mask>0 tiles (descending); the mask then zeroes every candidate
+    beyond ``max(1, floor(T_valid * fraction))``, the reference's
+    int(T_valid * fraction) (reference: gbm/model.py:192-194)."""
+    T = tiles.shape[0]
+    k_static = max(1, int(T * fraction))
+    s = torch.where(mask > 0, scores.to(mask.device, torch.float32),
+                    torch.full_like(mask, float("-inf")))
+    _, idx = torch.topk(s, k_static)
+    k_dyn = torch.clamp_min(torch.floor(mask.sum() * fraction), 1.0)
+    keep = (torch.arange(k_static, device=mask.device) < k_dyn).to(mask.dtype)
+    return tiles[idx], mask[idx] * keep
+
+
+def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None):
+    """Everything after the CNN: context, gated attention, pooling, logits.
+    H: [T, L] float32 features; ``keep`` [T, L] boolean applies the train
+    dropout to the instance-code branch. Runs with autograd when the caller
+    has it on. Returns a dict of intermediates."""
     Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
                              model.context.bn.bias, mask=mask)
     Hm0 = N.leaky_relu(H)
+    if keep is not None:
+        Hm0 = N.dropout(Hm0, cfg.dropout, keep.to(Hm0.device), train=True)
 
     a, b = model.attention, model.buffer
     A_raw = _lin(torch.tanh(_lin(Hz0, a["lin1"])), a["lin2"])      # [T, K]
@@ -154,21 +195,49 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None):
     }
 
 
-@torch.no_grad()
 def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
-                        mask=None, compute_dtype=None):
-    """Eval bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask:
-    optional [T] validity (1 = real tile). Returns the reference's 13-key
-    dict."""
+                        mask=None, train: bool = False, generator=None,
+                        scores=None, keep=None, compute_dtype=None):
+    """Bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask: optional
+    [T] validity (1 = real tile). Returns the reference's 13-key dict.
+
+    ``train=True`` subsamples the tiles and applies dropout, with the noise
+    given (``scores`` [T] Gumbel draws, ``keep`` [k, L] boolean for the
+    ``k = max(1, int(T * cfg.train_tile_fraction))`` kept rows) or drawn
+    from ``generator`` (scores first, then keep); autograd is on and only
+    ``loss`` carries a gradient. Eval runs under ``no_grad``."""
     if mask is None:
         mask = torch.ones(tiles.shape[0], dtype=torch.float32,
                           device=tiles.device)
+    if not train:
+        with torch.no_grad():
+            return _bag_forward(model, tiles, label, cfg, mask, None,
+                                compute_dtype, remat=False)
+    T = tiles.shape[0]
+    need = scores is None or (keep is None and cfg.dropout > 0.0)
+    if need and generator is None:
+        raise ValueError("train=True needs a generator or the injected "
+                         "scores and keep")
+    if scores is None:
+        scores = gumbel_scores(generator, T)
+    tiles, mask = _subsample(tiles, mask, cfg.train_tile_fraction, scores)
+    if keep is None and cfg.dropout > 0.0:
+        keep = dropout_keep(generator, (tiles.shape[0], cfg.L), cfg.dropout)
+    outs = _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype,
+                        remat=cfg.remat)
+    return {k: (v if k == "loss" else v.detach()) for k, v in outs.items()}
 
-    H = resnet.apply_resnet26(model.cnn, tiles, compute_dtype=compute_dtype,
-                              stem=cfg.stem).float()               # [T, L]
+
+def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
+                 remat):
+    # the CNN input carries no gradient, like the reference's .detach()
+    # (reference: gbm/model.py:194)
+    H = resnet.apply_resnet26(model.cnn, tiles.detach(),
+                              compute_dtype=compute_dtype, stem=cfg.stem,
+                              remat=remat).float()                # [T, L]
     KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
 
-    pooled = attention_pool(model, H, cfg, mask=mask)
+    pooled = attention_pool(model, H, cfg, mask=mask, keep=keep)
     logits = pooled["logits"]
     y_pred = torch.softmax(logits, dim=1)
     y_pred_hat = torch.argmax(y_pred)

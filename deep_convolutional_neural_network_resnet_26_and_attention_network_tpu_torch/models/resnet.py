@@ -15,7 +15,9 @@ Module names follow the reference state dict (``conv1``,
 reference checkpoints and the JAX parameters (``utils/interop.py``) load
 with ``strict=True``. The forward takes NHWC tiles like the JAX function;
 the permute to NCHW is a ``channels_last`` view, and every conv runs in
-that memory format.
+that memory format. ``remat=True`` recomputes each residual block in the
+backward pass (``torch.utils.checkpoint``, as the JAX package's
+``jax.checkpoint``), trading compute for activation memory.
 """
 
 from typing import Sequence
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops import init as I
@@ -182,11 +185,13 @@ class ResNet26(nn.Module):
         return F.max_pool2d(N.leaky_relu(h), 3, 2, 1)
 
     def forward(self, x, *, compute_dtype=None, taps: bool = False,
-                stem: str = "conv7"):
+                stem: str = "conv7", remat: bool = False):
         """x [N, H, W, 3] -> [N, embed_dim]. ``taps=True`` also returns the
         ordered NHWC activations 'stem', 'stage1'..'stage4' and 'pool'.
         ``stem="s2d"`` computes the stem as space-to-depth + conv4x4 (the
-        same sum of products; conv7 for odd sizes)."""
+        same sum of products; conv7 for odd sizes). ``remat=True`` keeps
+        only each block's input for the backward pass and recomputes the
+        rest there (a no-op without autograd)."""
         x = x.contiguous()
         acts = {}
         h = self._stem(x, compute_dtype, stem)
@@ -194,7 +199,11 @@ class ResNet26(nn.Module):
             acts["stem"] = h.permute(0, 2, 3, 1)
         for s, stage in enumerate(self.stages()):
             for block in stage:
-                h = block(h, compute_dtype)
+                if remat and torch.is_grad_enabled():
+                    h = checkpoint(block, h, compute_dtype,
+                                   use_reentrant=False)
+                else:
+                    h = block(h, compute_dtype)
             if taps:
                 acts[f"stage{s + 1}"] = h.permute(0, 2, 3, 1)
         h = h.mean(dim=(2, 3))
@@ -217,6 +226,7 @@ def init_resnet26(generator, *, embed_dim: int = EMBED_DIM,
 
 
 def apply_resnet26(model, x, *, compute_dtype=None, taps: bool = False,
-                   stem: str = "conv7"):
+                   stem: str = "conv7", remat: bool = False):
     """Forward: x [N, H, W, 3] -> embeddings [N, embed_dim]."""
-    return model(x, compute_dtype=compute_dtype, taps=taps, stem=stem)
+    return model(x, compute_dtype=compute_dtype, taps=taps, stem=stem,
+                 remat=remat)

@@ -1,3 +1,4 @@
-"""Serving entry points: one-pass and streaming slide classification."""
+"""Serving entry points (one-pass and streaming slide classification) and
+the single-device train and eval steps."""
 
-from . import inference  # noqa: F401
+from . import inference, steps  # noqa: F401

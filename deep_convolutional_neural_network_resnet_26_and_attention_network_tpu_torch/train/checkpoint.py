@@ -7,13 +7,21 @@ with JAX layouts (``utils/interop.jax_params_from_module``). So a file that
 either package writes restores into the other, and the reference's
 transfer-mode filter (keys containing both 'cnn' and 'conv'; reference:
 gbm/classify_combined.py:526-535) stays a literal string match.
-``restore_opt_state`` and ``AsyncCheckpointer`` come with the training
-slice.
+
+With an optimizer, ``save`` also writes its Adam state under the keys that
+the JAX package's ``_flatten`` gives optax's ``ScaleByAdamState``:
+``optimizer/count``, ``optimizer/mu/<JAX path>`` and
+``optimizer/nu/<JAX path>``; ``restore_opt_state`` reads them back, so a
+run resumes across the two packages with its moments. ``AsyncCheckpointer``
+writes in a background thread; since ``optimizer.step()`` updates the
+parameters in place, its ``save`` copies everything to host memory before
+it returns.
 """
 
 import io
 import os
 import re
+import threading
 
 import numpy as np
 
@@ -70,13 +78,26 @@ def save_blob(path: str, blob: dict):
     return path
 
 
-def save(path: str, model):
-    """Persist ``model``'s parameters (an ``AttentionMIL``) as one .model
-    file, in JAX layouts. The optimizer state and extra keys of the JAX
-    package's ``save`` come with the training slice."""
-    params = interop.jax_params_from_module(model)
-    return save_blob(path, {f"classifier/{k}": v
-                            for k, v in _flatten(params).items()})
+def snapshot(model, optimizer=None) -> dict:
+    """The flattened checkpoint blob of ``model`` (an ``AttentionMIL``)
+    and, when given, its ``torch.optim.Adam``: host numpy copies in JAX
+    layouts, taken when this returns (the copies off the card
+    synchronise)."""
+    blob = {f"classifier/{k}": v for k, v in
+            _flatten(interop.jax_params_from_module(model)).items()}
+    if optimizer is not None:
+        count, mu, nu = interop.adam_state_to_jax(model, optimizer)
+        blob["optimizer/count"] = np.asarray(count, np.int32)
+        for name, tree in (("mu", mu), ("nu", nu)):
+            blob.update({f"optimizer/{name}/{k}": v
+                         for k, v in _flatten(tree).items()})
+    return blob
+
+
+def save(path: str, model, optimizer=None):
+    """Persist ``model``'s parameters (and ``optimizer``'s Adam state) as
+    one .model file, in JAX layouts."""
+    return save_blob(path, snapshot(model, optimizer))
 
 
 def load_raw(path: str) -> dict:
@@ -122,6 +143,73 @@ def restore_params(model, path: str, *, transfer: bool = False,
             raise KeyError(f"missing checkpoint keys: {sorted(missing)[:5]}...")
     interop.load_jax_params(model, tree)
     return model, loaded, skipped
+
+
+def restore_opt_state(optimizer, model, path: str):
+    """Overlay the Adam state of a checkpoint (written by either package)
+    onto ``optimizer`` over ``model``'s parameters; a moment whose key is
+    missing or whose shape differs keeps its current value. Returns
+    ``(optimizer, ok)``, ``ok`` False when the file holds no optimizer
+    state (the optimizer is then untouched)."""
+    blob = load_raw(path)
+    if "optimizer/count" not in blob:
+        return optimizer, False
+    count, mu, nu = interop.adam_state_to_jax(model, optimizer)
+    loaded = 0
+    for name, tree in (("mu", mu), ("nu", nu)):
+        for key, value in _flatten(tree).items():
+            stored = blob.get(f"optimizer/{name}/{key}")
+            if stored is not None and stored.shape == value.shape:
+                _set_path(tree, key, stored)
+                loaded += 1
+    if not loaded:
+        return optimizer, False
+    interop.load_adam_state(model, optimizer, blob["optimizer/count"], mu,
+                            nu)
+    return optimizer, True
+
+
+class AsyncCheckpointer:
+    """Overlap a checkpoint's serialization and file write with training
+    (what orbax calls async checkpointing).
+
+    ``save`` takes the host snapshot (:func:`snapshot`) before it returns,
+    so the next in-place ``optimizer.step()`` cannot reach the file; a
+    worker thread then writes it atomically. At most one write is in
+    flight: a new ``save``/``submit`` (or ``wait()``) joins the previous
+    one first, and a worker failure re-raises there. Callers ``wait()``
+    before exiting or halting so the last file is durable (the thread is
+    not a daemon, so a clean interpreter exit drains it too)."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._exc: BaseException | None = None
+
+    def submit(self, fn, /, *args, **kwargs):
+        self.wait()
+
+        def run():
+            try:
+                fn(*args, **kwargs)
+            except BaseException as e:  # surfaced by the next wait()
+                self._exc = e
+
+        self._thread = threading.Thread(target=run,
+                                        name="async-checkpoint-writer")
+        self._thread.start()
+
+    def save(self, path: str, model, optimizer=None):
+        """Snapshot now, write in the background (module-level ``save``)."""
+        self.submit(save_blob, path, snapshot(model, optimizer))
+
+    def wait(self):
+        """Join the in-flight write, if any; re-raise its failure."""
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        if self._exc is not None:
+            e, self._exc = self._exc, None
+            raise e
 
 
 def latest_checkpoint(output_dir: str) -> str | None:

@@ -1,23 +1,467 @@
-"""The attention-MIL classifier CLI's configuration.
+"""Attention-MIL training and validation CLI: the live driver.
 
-Counterpart of ``train/classify.py`` in the JAX package. Only
-:func:`make_config` is ported so far, for the serving daemon
-(``train/serve.py``); the training, validation and interface CLI comes
-with the training slice.
+Counterpart of ``train/classify.py`` in the JAX package, after the
+reference entry point ``gbm/classify_combined.py`` (flags
+--tag --ckpt --fold --epoch_start --epoch_end --transfer --test_only;
+reference: gbm/classify_combined.py:44-87) and its artifacts (per-epoch
+``train_step-<epoch:03d>.model`` checkpoints in the JAX package's format,
+``*summary.json`` stats, ``<epoch>predictions.json``, the split JSON and
+``model_structure.txt``). One device: the card unless ``main`` is given
+``device="cpu"``. Each bag's gradient is added into the parameters'
+gradients; every ``--accum`` bags (reference: :446-454), and on a partial
+tail window, Adam steps at the staged learning rate (reference: :110-138).
+
+Every random stream of epoch E is a pure function of (seed, E, bag index):
+the bag order (``loader.epoch_loader_seed``), the tile cap and the crop /
+flip augmentation (``RoiBuilder.reseed_augment``), and the Gumbel scores
+and dropout masks (:meth:`Driver.bag_generator`). So a run resumed from
+epoch E-1's checkpoint replays epoch E of the uninterrupted run.
+
+Not ported yet, each refusing to start with the ``ROADMAP.md`` item that
+brings it: ``--interface``, ``--peak``, ``--n_vis`` above 0 (the
+heatmap figures; the default is 0 here), ``--tensorboard``,
+``--profile``, ``--mesh`` and ``--int8``. The JAX trainer's figures
+(``plot_gbm_metrics``, ``plot_prediction_summary``) are left out with
+them; the data behind them is written.
+
+Run ``python -m deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train.classify --help``.
 """
 
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..data import dataset as ds_mod
+from ..data.loader import epoch_loader_seed, prefetch_iter, sample_data
 from ..models import attention_mil as amil
+from ..parallel import inference, steps
+from ..utils import helpers, plots
+from . import DIVERGED_EXIT, PreemptionLatch, checkpoint, schedule
+
+TARGET_NAMES = ["A", "B", "C"]
+# the ROADMAP items that bring the options this port does not have yet
+NOT_PORTED = {"interface": "slice (e) (the caMicroscope interface mode)",
+              "peak": "slice (e) (weight and activation inspection)",
+              "n_vis": "slice (d) (the heatmap figures)",
+              "tensorboard": "slice (f) (TensorBoard epoch stats)",
+              "profile": "slice (f) (the profiler trace)",
+              "mesh": "A.10 (multi-GPU)",
+              "int8": "A.11 (int8 serving)"}
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(
+        description="Attention-based classifier for WSI images "
+                    "(PyTorch/CUDA attention-MIL)")
+    p.add_argument("--tag", default="TEST", type=str, help="Output tag")
+    p.add_argument("--ckpt", default=None, type=str,
+                   help="load from previous checkpoints ('auto': the newest "
+                        "in the run directory)")
+    p.add_argument("--epoch_start", default=0, type=int)
+    p.add_argument("--epoch_end", default=40, type=int)
+    p.add_argument("--fold", default=0, type=int,
+                   help="Which fold? 0..n_folds-1 selects that KFold fold; "
+                        "-1 = the reference's seeded-random middle-fold "
+                        "pick; >= n_folds trains on every slide")
+    p.add_argument("--transfer", action="store_true",
+                   help="Transfer learning: restore ResNet convs only, "
+                        "linear layers stay freshly initialized")
+    p.add_argument("--peak", action="store_true",
+                   help="Inspect weight matrices / activations and exit "
+                        "(not ported yet; refuses to start)")
+    p.add_argument("--test_only", action="store_true",
+                   help="Exit after one validation pass")
+    p.add_argument("--interface", action="store_true",
+                   help="Run in caMicroscope interface mode (not ported "
+                        "yet; refuses to start)")
+    # configuration the reference hardcoded
+    p.add_argument("--data_root", default="/raid/GHP Immunohistochemistry/")
+    p.add_argument("--image_dir", default="All_HE_scans_GBM_AN")
+    p.add_argument("--label_sheet", default=None,
+                   help="the cluster sheet, as csv")
+    p.add_argument("--split_ckpt", default=None,
+                   help="restore a training_validation_testing_data*.json split")
+    p.add_argument("--output_root", default=".")
+    p.add_argument("--resolution", default=300, type=int)
+    p.add_argument("--roi_size", default=None, type=int,
+                   help="tile size on the slide (default: RoiBuilder's 1200)")
+    p.add_argument("--accum", default=5, type=int,
+                   help="gradient-accumulation slides per optimizer step")
+    p.add_argument("--workers", default=1, type=int,
+                   help="producer threads for the training bag loader "
+                        "(the reference's DataLoader num_workers)")
+    p.add_argument("--arch", default="full", choices=["full", "tiny"],
+                   help="tiny = smoke-test model (CI/CPU)")
+    p.add_argument("--stem", default="conv7", choices=["conv7", "s2d"],
+                   help="s2d = space-to-depth stem (identical math)")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--f32", action="store_true",
+                   help="disable bf16 conv/matmul compute")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute resnet blocks in the backward pass to fit "
+                        "large training bags")
+    p.add_argument("--n_vis", default=0, type=int,
+                   help="slides visualized every 10 epochs (the figures are "
+                        "not ported yet: above 0 refuses to start)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="stream epoch stats to TensorBoard (not ported yet; "
+                        "refuses to start)")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the first trained epoch (not ported yet; "
+                        "refuses to start)")
+    p.add_argument("--mesh", default=0, type=int,
+                   help="train over N cards (not ported yet; refuses to "
+                        "start)")
+    p.add_argument("--train_pad", default=None, type=int,
+                   help="zero-pad margin for the train random-crop jitter "
+                        "(default: the reference's 100 px at roi 1200, "
+                        "scaled to --roi_size); 0 disables the pad/crop")
+    p.add_argument("--stream_tiles", default=4096, type=int,
+                   help="validation slides with more tiles than this "
+                        "stream chunks through the extractor instead of "
+                        "holding the whole f32 bag on the card")
+    p.add_argument("--int8", action="store_true",
+                   help="W8A8 int8 serving (not ported yet; refuses to "
+                        "start)")
+    p.add_argument("--int8_calib", default=256, type=int,
+                   help="calibration tiles for --int8 (not ported yet)")
+    return p
 
 
 def make_config(args, class_weights=None) -> amil.MILConfig:
     """``args.arch`` ``full`` (widths 20/40/60/80, 3 blocks a stage) or
-    ``tiny`` (widths 8, 1 block a stage), ``args.stem`` (``conv7`` unless
-    given) and optional class weights. ``args.remat`` is ignored: the
-    port's ``MILConfig`` has no ``remat`` until the training slice, and
-    serving never recomputes activations."""
+    ``tiny`` (widths 8, 1 block a stage), ``args.stem`` and ``args.remat``
+    (``conv7`` and off unless given) and optional class weights."""
     cw = tuple(class_weights) if class_weights is not None else None
+    remat = getattr(args, "remat", False)
     stem = getattr(args, "stem", "conv7")
     if args.arch == "tiny":
         return amil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1),
-                              class_weights=cw, stem=stem)
-    return amil.MILConfig(class_weights=cw, stem=stem)
+                              class_weights=cw, remat=remat, stem=stem)
+    return amil.MILConfig(class_weights=cw, remat=remat, stem=stem)
+
+
+def _seed_generator(*entropy: int) -> torch.Generator:
+    """A CPU generator seeded from a ``SeedSequence`` of ``entropy``."""
+    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+class Driver:
+    """The model, its optimizer, the step functions and the output paths,
+    on ``device`` (the card unless ``"cpu"``)."""
+
+    def __init__(self, args, cfg: amil.MILConfig, output_dir: str, *,
+                 device=None):
+        self.args = args
+        self.cfg = cfg
+        self.output_dir = output_dir
+        self.device = resolve_device(device)
+        self.compute_dtype = None if args.f32 else torch.bfloat16
+        self.diverged = False  # set by the non-finite-loss guard
+        self.stream_tiles = int(args.stream_tiles)
+
+        self.model = amil.init_attention_mil(
+            torch.Generator().manual_seed(args.seed), cfg,
+            device=self.device).train()
+        self.optimizer = steps.make_optimizer(self.model)
+        # the write of each epoch's checkpoint overlaps the next epoch; its
+        # save() copies the state to the host first, since the next
+        # optimizer step updates the parameters in place
+        self.ckpt_writer = checkpoint.AsyncCheckpointer()
+        self.grad_fn = steps.make_bag_grad(cfg,
+                                           compute_dtype=self.compute_dtype)
+        self.fwd_eval = steps.make_bag_forward(
+            cfg, train=False, compute_dtype=self.compute_dtype)
+        self.fwd_train = steps.make_bag_forward(
+            cfg, train=True, compute_dtype=self.compute_dtype)
+
+    def _halt_non_finite(self, epoch: int, loss_sum: float) -> bool:
+        """A NaN/Inf training loss halts the run BEFORE checkpointing, so
+        the newest checkpoint on disk stays the last healthy epoch and
+        ``--ckpt auto`` resumes from good state. (The reference saved
+        whatever the epoch produced, gbm/classify_combined.py:468-474.)"""
+        print(f"FATAL: non-finite training loss (sum={loss_sum}) at epoch "
+              f"{epoch}; halting WITHOUT checkpointing; fix the config "
+              "and resume from the last good checkpoint (--ckpt auto)",
+              file=sys.stderr)
+        self.diverged = True  # main() exits DIVERGED_EXIT, not 0
+        try:
+            self.ckpt_writer.wait()  # the last healthy epoch's write lands
+        except Exception as exc:
+            # a failed pending write must not mask the divergence: the
+            # DIVERGED_EXIT contract is what supervisors key on
+            print(f"WARNING: pending checkpoint write also failed: {exc}",
+                  file=sys.stderr)
+        return False
+
+    def bag_generator(self, epoch: int, n: int, *, validate: bool = False):
+        """The generator of bag ``n``'s Gumbel scores and dropout mask in
+        epoch ``epoch``: a pure function of (seed, epoch, n), so a resumed
+        run replays the uninterrupted run's streams. Validation has a
+        disjoint domain, as the JAX package's ``epoch_key`` gives it."""
+        base = 1_000_000 + epoch if validate else epoch
+        return _seed_generator(self.args.seed, base, n)
+
+    # ------------------------------------------------------------ train
+    def train_epoch(self, epoch: int, dataset, epoch_stats: dict):
+        stage = schedule.stage_for_epoch(epoch)
+        if stage.stop:
+            self.ckpt_writer.save(
+                checkpoint.checkpoint_path(self.output_dir, epoch, final=True),
+                self.model)
+            self.ckpt_writer.wait()
+            print(f"Stage = [Stop]: saved FINAL checkpoint at epoch {epoch}")
+            return False
+        print(f"===> TRAIN: Epoch = {epoch} "
+              f"Stage = [{stage.name}], lr = [{stage.lr}]")
+
+        coefs = amil.gate_coefficients(self.model).cpu().numpy()
+        for i in range(3):
+            epoch_stats[f"coef_a{i + 1}"] = float(coefs[i])
+
+        dataset.train()
+        dataset.reseed_augment(self.args.seed, epoch)
+        if self.args.workers > 1:
+            # parallel producers deliver out of order, so each bag's noise
+            # and its window vary from run to run: bit-exact resume holds
+            # only for the default single producer
+            print("note: --workers > 1 delivers bags out of order; "
+                  "bit-exact determinism/resume requires --workers 1")
+        loader = sample_data(dataset, image_size=self.args.resolution,
+                             shuffle=True,
+                             seed=epoch_loader_seed(self.args.seed, epoch),
+                             workers=self.args.workers)
+
+        # the scalars stay on the device through the epoch; one copy at
+        # the end
+        keys = ("loss", "error", "Aterm_mu", "Aterm_var", "KLD", "l2",
+                "y_pred_hat")
+        dev_metrics = {k: [] for k in keys}
+        labels = []
+        self.optimizer.zero_grad(set_to_none=True)
+        batch_count = 0
+        n = 0
+        t0 = time.time()
+        for tiles, mask, label in loader:
+            outs = self.grad_fn(self.model, tiles, mask, label,
+                                self.bag_generator(epoch, n))
+            batch_count += 1
+            if batch_count >= self.args.accum:
+                steps.apply_updates(self.optimizer, stage.lr)
+                batch_count = 0
+            for k in keys:
+                dev_metrics[k].append(outs[k])
+            labels.append(label)
+            n += 1
+        if batch_count:
+            # a partial tail window steps too, rather than dropping its
+            # gradients (the reference's un-zeroed .grad buffers carried
+            # them into the next epoch; see PARITY.md)
+            steps.apply_updates(self.optimizer, stage.lr)
+        epoch_stats["input_stall_fraction"] = loader.stall_fraction()
+        fetched = {k: torch.stack(v).float().cpu().numpy() if v
+                   else np.zeros((0,)) for k, v in dev_metrics.items()}
+        dt = time.time() - t0
+        predictions = [int(p) for p in fetched["y_pred_hat"]]
+        loss_sum = float(fetched["loss"].sum())
+        if not np.isfinite(loss_sum):
+            return self._halt_non_finite(epoch, loss_sum)
+        self.ckpt_writer.save(checkpoint.checkpoint_path(self.output_dir,
+                                                         epoch),
+                              self.model, self.optimizer)
+        n = max(n, 1)
+        epoch_stats["train_acc"] = helpers.classification_report(
+            labels, predictions, labels=[0, 1, 2], target_names=TARGET_NAMES)
+        epoch_stats["train_loss"] = loss_sum / n
+        epoch_stats["train_wsum"] = float(fetched["Aterm_mu"].sum()) / n
+        epoch_stats["train_wvar"] = float(fetched["Aterm_var"].sum()) / n
+        epoch_stats["train_cll2"] = (float(fetched["l2"][-1])
+                                     if len(fetched["l2"]) else 0.0)
+        epoch_stats["train_kld"] = float(fetched["KLD"].sum()) / n
+        epoch_stats["train_err"] = float(fetched["error"].sum()) / n
+        epoch_stats["train_secs"] = dt
+        # the legacy summary keys the root plot script reads
+        # (plot_gbm_metrics.py:55-56): the epoch's total loss and the
+        # legacy Attention temperature default (gbm/classify.py:366)
+        epoch_stats["train_sum"] = loss_sum
+        epoch_stats["model_temp"] = 0.0
+        epoch_stats["model_mean_weights"] = \
+            helpers.get_layer_weight_summary_mean(self.model)
+        epoch_stats["model_max_weights"] = \
+            helpers.get_layer_weight_summary_max(self.model)
+        print(f"T: Loss {epoch_stats['train_loss']:.3f}; "
+              f"Error {100 * epoch_stats['train_err']:.2f}%; "
+              f"{n} slides in {dt:.1f}s")
+        return True
+
+    # --------------------------------------------------------- validate
+    def validate(self, epoch: int, dataset, epoch_stats: dict):
+        print(f"===> VALIDATION: Epoch = {epoch}")
+        stage = schedule.stage_for_epoch(epoch, test=True)
+        dataset.eval()
+        dataset.NewResolution(self.args.resolution)
+        keys = ("loss", "error", "Aterm_mu", "KLD", "y_pred_hat")
+        dev = {k: [] for k in keys}
+        predvals, labels = [], []
+        n = 0
+        n_streamed = 0  # oversized bags that took the eval-mode streaming
+
+        def produce():
+            # normal bags load (cache IO, transform) on a prefetch thread
+            # while the device runs the previous one; oversized bags are
+            # marked and stream on the consumer side
+            for idx, builder in enumerate(dataset.test_slide_builders):
+                label = int(dataset.test_slide_record[idx])
+                if builder.getsize() > self.stream_tiles:
+                    yield "stream", builder, label
+                else:
+                    yield "bag", builder.get_validation_data(), label
+
+        for kind, payload, label in prefetch_iter(produce(), depth=2):
+            if kind == "stream":
+                # exact eval-mode streaming (one chunk plus the [T, L]
+                # features resident); the pre-Check train-mode noise is
+                # skipped for these bags
+                _, souts, _ = inference.classify_slide_streaming(
+                    self.model, self.cfg, payload,
+                    resolution=self.args.resolution,
+                    compute_dtype=self.compute_dtype)
+                outs = {k: torch.as_tensor(np.asarray(v)) for k, v in
+                        inference.streaming_eval_outputs(
+                            souts, label, self.cfg).items()}
+                n_streamed += 1
+            else:
+                mask = torch.ones(payload.shape[0], dtype=torch.float32,
+                                  device=payload.device)
+                # pre-Check stages validate with the train-mode noise, like
+                # the reference (SetStage(test=True) switches to eval only
+                # from epoch 150; gbm/classify_combined.py:123-134)
+                if stage.train_mode:
+                    outs = self.fwd_train(
+                        self.model, payload, mask, label,
+                        self.bag_generator(epoch, n, validate=True))
+                else:
+                    outs = self.fwd_eval(self.model, payload, mask, label)
+            for k in keys:
+                dev[k].append(outs[k].reshape(()).cpu())
+            predvals.append(outs["y_pred"].reshape(-1).float().cpu().numpy())
+            labels.append(label)
+            n += 1
+        fetched = {k: torch.stack(v).float().numpy() if v else np.zeros((0,))
+                   for k, v in dev.items()}
+        predictions = [int(p) for p in fetched["y_pred_hat"]]
+        n = max(n, 1)
+        # the JAX trainer draws plot_prediction_summary here; the figures
+        # are not ported (ROADMAP slice (d)), the data behind them is:
+        # <epoch>predictions.json, plot_roc's input (reference:
+        # gbm/plot_roc.py:12-38): score = P(class A), label = 1 iff A
+        if predvals:
+            plots.save_predictions(
+                self.output_dir, epoch, [float(p[0]) for p in predvals],
+                [1.0 if int(lbl) == 0 else 0.0 for lbl in labels])
+        epoch_stats["valid_acc"] = helpers.classification_report(
+            labels, predictions, labels=[0, 1, 2], target_names=TARGET_NAMES)
+        epoch_stats["valid_loss"] = float(fetched["loss"].sum()) / n
+        epoch_stats["valid_err"] = float(fetched["error"].sum()) / n
+        epoch_stats["valid_wsum"] = float(fetched["Aterm_mu"].sum()) / n
+        epoch_stats["valid_kld"] = float(fetched["KLD"].sum()) / n
+        # streamed bags always take the eval-mode forward; before Check a
+        # nonzero count marks the epoch's validation as mixed-mode
+        epoch_stats["valid_streamed_bags"] = n_streamed
+        epoch_stats["valid_eval_mode"] = not stage.train_mode
+        print(f"V: Loss {epoch_stats['valid_loss']:.3f}; "
+              f"Error {100 * epoch_stats['valid_err']:.2f}%")
+
+
+def _refuse_not_ported(args):
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(
+                f"classify: --{flag} is not ported to the PyTorch package "
+                f"yet; ROADMAP {item} brings it")
+
+
+def main(argv=None, *, device=None):
+    """The CLI. ``device`` is where the model trains and bags are built:
+    the card unless ``"cpu"`` is asked for (there is no fallback)."""
+    args = build_argparser().parse_args(argv)
+    _refuse_not_ported(args)
+    print(args)
+    device = resolve_device(device)
+    output_dir = os.path.join(args.output_root, f"run_{args.tag}")
+    os.makedirs(output_dir, exist_ok=True)
+
+    dataset = ds_mod.GHPSingleBagDatasetSimple(
+        bag=True, output_dir=output_dir, root_dir=args.data_root,
+        image_dir=args.image_dir, label_sheet=args.label_sheet,
+        roi_size=args.roi_size, seed=args.seed,
+        train_pad=args.train_pad, device=device)
+    if args.split_ckpt:
+        dataset.load_from_checkpoint(args.split_ckpt)
+    else:
+        dataset.load_new(n_folds=6, n_fold_selection=args.fold)
+
+    cfg = make_config(args, dataset.GetClassWeights())
+    driver = Driver(args, cfg, output_dir, device=device)
+
+    if args.ckpt == "auto":
+        # elastic resume: pick up the newest checkpoint in the run dir
+        args.ckpt = checkpoint.latest_checkpoint(output_dir)
+        if args.ckpt:
+            print(f"Auto-resume from {args.ckpt}")
+    if args.ckpt is not None and not os.path.isfile(args.ckpt):
+        print(f"error: checkpoint not found: {args.ckpt}", file=sys.stderr)
+        return 2
+    if args.ckpt is not None:
+        _, loaded, skipped = checkpoint.restore_params(
+            driver.model, args.ckpt, transfer=args.transfer)
+        mode = "ResNet-conv transfer" if args.transfer else "full"
+        print(f"Loaded {mode} checkpoint: {len(loaded)} tensors "
+              f"({len(skipped)} skipped)")
+        if not args.transfer:
+            checkpoint.restore_opt_state(driver.optimizer, driver.model,
+                                         args.ckpt)
+
+    if args.epoch_start == 0:
+        with open(os.path.join(output_dir, "model_structure.txt"), "w+") as f:
+            f.write(helpers.model_summary(driver.model))
+
+    if args.test_only:
+        epoch_stats = {}
+        driver.validate(args.epoch_start, dataset, epoch_stats)
+        helpers.savestats(args, output_dir, args.epoch_start, epoch_stats)
+        return 0
+
+    latch = PreemptionLatch().install()
+    try:
+        for ep in range(args.epoch_start, args.epoch_end + 1):
+            epoch_stats = {}
+            if not driver.train_epoch(ep, dataset, epoch_stats):
+                break  # Stop stage, or a halt on a non-finite loss
+            if ep % 5 == 0:
+                driver.validate(ep, dataset, epoch_stats)
+                helpers.savestats(args, output_dir, ep, epoch_stats)
+                # the JAX trainer redraws plot_gbm_metrics here; the
+                # figures wait for ROADMAP slice (d)
+            if latch.stop_requested():
+                # epoch ep's checkpoint is submitted; the wait() below
+                # makes it durable before the clean exit
+                print(f"train: preempted, stopped after epoch {ep}; "
+                      f"resume with --ckpt auto --epoch_start {ep + 1}")
+                break
+    finally:
+        latch.restore()
+    driver.ckpt_writer.wait()  # the last epoch's checkpoint must be durable
+    # a run halted on divergence must be told apart from success (the Stop
+    # stage's break is a clean finish)
+    return DIVERGED_EXIT if driver.diverged else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-"""Utilities: weight carry-over from the JAX parameter tree and back, and
-the ``.dla`` heatmap writer."""
+"""Utilities: weight and optimizer-state carry-over from the JAX layouts
+and back, epoch stats and summaries, the classification report, the
+``.dla`` heatmap writer and the predictions artifact."""
 
-from . import helpers, interop  # noqa: F401
+from . import helpers, interop, plots  # noqa: F401

@@ -13,9 +13,13 @@ are the reference's state-dict names (reference: gbm/model.py:114-157,
 
 Layouts: JAX conv kernels are HWIO and become OIHW; JAX linear weights are
 ``[in, out]`` and become ``[out, in]``. ``jax_params_from_module`` goes
-the other way (the checkpoint writer, ``train/checkpoint.py``, needs it).
-The name rules are the port's own copy; nothing is imported from the JAX
-package.
+the other way (the checkpoint writer, ``train/checkpoint.py``, needs it);
+given ``value`` it maps any per-parameter tensor instead (gradients, Adam
+moments). ``adam_state_to_jax`` / ``load_adam_state`` carry a
+``torch.optim.Adam``'s moments and step count to and from the layout of
+optax's ``ScaleByAdamState(count, mu, nu)``, so a resumed run keeps its
+moments across the two packages. The name rules are the port's own copy;
+nothing is imported from the JAX package.
 """
 
 import numpy as np
@@ -91,40 +95,79 @@ def _np(t, layout=None):
     return np.array(a, np.float32, order="C")
 
 
-def _resnet_tree(cnn) -> dict:
+def _resnet_tree(cnn, v) -> dict:
     stages = []
     for stage in cnn.stages():
         blocks = []
         for block in stage:
-            p = {c: {"w": _np(getattr(block, c).weight, "conv"),
-                     "b": _np(getattr(block, c).bias)}
+            p = {c: {"w": v(getattr(block, c).weight, "conv"),
+                     "b": v(getattr(block, c).bias)}
                  for c in ("conv1", "conv2")}
             if block.downsample is not None:
-                p["downsample"] = {"w": _np(block.downsample[0].weight,
-                                            "conv")}
+                p["downsample"] = {"w": v(block.downsample[0].weight,
+                                          "conv")}
             blocks.append(p)
         stages.append(blocks)
-    return {"conv1": {"w": _np(cnn.conv1.weight, "conv"),
-                      "b": _np(cnn.conv1.bias)},
+    return {"conv1": {"w": v(cnn.conv1.weight, "conv"),
+                      "b": v(cnn.conv1.bias)},
             "stages": stages,
-            "fc": {"w": _np(cnn.fc.weight, "lin")}}
+            "fc": {"w": v(cnn.fc.weight, "lin")}}
 
 
-def jax_params_from_module(model: torch.nn.Module) -> dict:
+def jax_params_from_module(model: torch.nn.Module, value=None) -> dict:
     """The inverse of :func:`state_dict_from_jax`: an ``AttentionMIL`` (or a
     ``ResNet26``) -> the JAX package's nested parameter tree of float32
     numpy arrays, with JAX layouts (HWIO convs, ``[in, out]`` linears) and
-    JAX key names; ``stages`` is a list of lists of blocks."""
+    JAX key names; ``stages`` is a list of lists of blocks.
+
+    ``value(param)`` picks another tensor of each parameter's shape instead
+    of the parameter itself (``lambda p: p.grad``, an optimizer moment); it
+    is laid out the same way."""
+    def v(param, layout=None):
+        return _np(param if value is None else value(param), layout)
+
     if not hasattr(model, "cnn"):
-        return _resnet_tree(model)
+        return _resnet_tree(model, v)
     a, b = model.attention, model.buffer
     return {
-        "cnn": _resnet_tree(model.cnn),
-        "context": {"gamma": _np(model.context.bn.weight),
-                    "beta": _np(model.context.bn.bias)},
-        "attention": {n: {"w": _np(a[n].weight, "lin"), "b": _np(a[n].bias)}
+        "cnn": _resnet_tree(model.cnn, v),
+        "context": {"gamma": v(model.context.bn.weight),
+                    "beta": v(model.context.bn.bias)},
+        "attention": {n: {"w": v(a[n].weight, "lin"), "b": v(a[n].bias)}
                       for n in ("lin1", "lin2")},
-        "buffer": {n: {"w": _np(b[n].weight, "lin"), "b": _np(b[n].bias)}
+        "buffer": {n: {"w": v(b[n].weight, "lin"), "b": v(b[n].bias)}
                    for n in ("lin1", "classifier")},
-        "weight_mask": _np(model.weight_mask),
+        "weight_mask": v(model.weight_mask),
     }
+
+
+def adam_state_to_jax(model: torch.nn.Module, optimizer):
+    """A ``torch.optim.Adam`` over ``model``'s parameters -> ``(count, mu,
+    nu)`` in the layout of optax's ``ScaleByAdamState``: the step count as
+    an int32 scalar and the two moments as JAX parameter trees. A parameter
+    with no state yet has zero moments."""
+    def moment(key):
+        def get(p):
+            st = optimizer.state.get(p, {})
+            return st[key] if key in st else torch.zeros_like(p)
+        return get
+
+    steps = [int(st["step"]) for st in optimizer.state.values()
+             if "step" in st]
+    count = np.int32(max(steps) if steps else 0)
+    return (count, jax_params_from_module(model, moment("exp_avg")),
+            jax_params_from_module(model, moment("exp_avg_sq")))
+
+
+def load_adam_state(model: torch.nn.Module, optimizer, count, mu, nu):
+    """The inverse of :func:`adam_state_to_jax`: set every parameter's Adam
+    state from optax's layout (``count``, and the ``mu`` / ``nu`` trees in
+    JAX layouts). Returns the optimizer."""
+    mu_sd, nu_sd = state_dict_from_jax(mu), state_dict_from_jax(nu)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": mu_sd[name].to(p.device, p.dtype).contiguous(),
+            "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).contiguous()}
+    return optimizer

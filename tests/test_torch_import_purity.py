@@ -1,9 +1,10 @@
 """The port imports no JAX and touches no device at import.
 
 An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
-the JAX package; a fresh interpreter that imports the whole port must
-leave ``jax`` out of ``sys.modules``, CUDA uninitialised, Triton unloaded
-and no kernel or native library built."""
+the JAX package, and scikit-learn, pandas and matplotlib, which the
+machine with the card does not have; a fresh interpreter that imports the
+whole port must leave all of them out of ``sys.modules``, CUDA
+uninitialised, Triton unloaded and no kernel or native library built."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
 JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
 FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "gbmnet")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "matplotlib")
 
 
 def _port_files():
@@ -43,7 +45,9 @@ def test_port_has_modules_to_scan():
                  "models/attention_mil.py", "data/roibuilder.py",
                  "ops/u8_stem.py", "data/native.py", "train/serve.py",
                  "train/checkpoint.py", "train/classify.py",
-                 "utils/helpers.py"):
+                 "utils/helpers.py", "parallel/steps.py",
+                 "train/schedule.py", "data/dataset.py", "data/accessors.py",
+                 "utils/plots.py"):
         assert must in names
 
 
@@ -54,16 +58,28 @@ def test_module_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, _REPO))
+def test_module_imports_nothing_the_card_machine_lacks(path):
+    bad = sorted(set(_imported_roots(path)) & set(NOT_ON_THE_CARD))
+    assert not bad, f"{path} imports {bad}"
+
+
 _PROBE = f"""
 import os, sys
 import {PORT} as port
 from {PORT} import data, models, ops, parallel, train, utils
 from {PORT}.ops import _build
 from {PORT}.data import native
-from {PORT}.train import serve
+from {PORT}.train import classify, schedule, serve
+from {PORT}.parallel import steps
+from {PORT}.data import accessors, dataset
+from {PORT}.utils import plots
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules
+for name in {NOT_ON_THE_CARD!r}:
+    assert name not in sys.modules, name
 assert not torch.cuda.is_initialized()
 assert "triton" not in sys.modules
 assert not _build._LIBS and native._LIB is None and not native._TRIED
