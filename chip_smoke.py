@@ -23,7 +23,16 @@ checkpoint in a fresh process and compares, runs ``--test_only``, holds a
 full-width f32 bag gradient on the card to the CPU's with the same
 injected noise, and times a training bag (data and model), a window, the
 peak memory with and without ``--remat``, a traced window's idle share and
-the pool's backward kernel. A kernel's device time is per call,
+the pool's backward kernel. Then the trainer's serving and
+instrumentation modes from the trained checkpoint: ``--interface`` on the
+training cohort in bf16 and f32 (its tables against direct calls, a timed
+and a traced run); W8A8 ``--int8`` (every conv site of the full-width
+int8 forward exact by each of its three lowerings against a float64
+convolution on the CPU, the slide-probability drift from bf16 and f32,
+the daemon with ``--int8`` behind a tile-less slide, ``--interface
+--int8``, and the int8 extractor against the bf16 one); ``--profile
+--tensorboard`` for one epoch; and ``data/build_caches.py --workers 2``
+against the RoiBuilder's caches. A kernel's device time is per call,
 summed over the CUDA launches of the call (the pool makes two above
 ``gated_pool.POOL_RANGE`` tiles); its launch counts are wrapper calls that
 reached the kernel. Progress (and the daemon's own
@@ -42,7 +51,9 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import filecmp
 import functools
+import io
 import json
 import os
 import re
@@ -60,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (  # noqa: E402
+    build_caches,
     dataset,
     loader,
     roibuilder,
@@ -73,6 +85,7 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
     _build,
     gated_pool,
+    quant,
     u8_stem,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
@@ -136,12 +149,13 @@ TRAIN_POOL_T = sorted({
                * amil.MILConfig().train_tile_fraction))
     for src, _ in TRAIN_COHORT.values()})
 # every bag the main paths pool is one slide's exact tile count, serial or
-# in a --batch group, or a training bag's subsample; the kernel is held to
+# in a --batch group, a training bag's subsample, or a tile-less slide's
+# zero bag (the int8 daemon serves one); the kernel is held to
 # plain at each of them, and at a few more (a bag below a warp, K=5/O=2,
 # 2048-2560, a 50k-tile slide, and the edges of the kernel's partition of
 # T into ranges)
 MAIN_PATH_T = sorted({tile_count(s) for s in _SPECS.values()}
-                     | set(TRAIN_POOL_T))
+                     | set(TRAIN_POOL_T) | {roibuilder.EMPTY_BAG_TILES})
 _R = gated_pool.POOL_RANGE
 POOL_SHAPES = [(t, 3, 1) for t in MAIN_PATH_T] + [
     (64, 3, 1), (100, 3, 1), (7, 5, 2), (2048, 3, 1), (2560, 3, 1),
@@ -295,10 +309,10 @@ def ms_how(how, prefix="ms"):
     return {f"{prefix}_{k}": v for k, v in how.items()}
 
 
-def time_cuda(fn, iters):
+def time_cuda(fn, iters, warmup=3):
     """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, by CUDA
-    events, after a warm-up."""
-    for _ in range(3):
+    events, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -458,9 +472,13 @@ def time_pool_backward(card):
     (dM only): the backward kernel's device time per call (``ms``, summed
     over its one or three launches), the plain chain's device time
     (``plain_device_ms``), both per call by CUDA events (``wrapper_ms``,
-    ``plain_ms``) and the bound."""
+    ``plain_ms``), the bound, and the floor of a latency-bound call: one
+    near-empty launch's device time (a one-element fill) times the
+    backward's launches per call (``floor_ms``)."""
     rows = {}
     n_bwd = gated_pool.BWD_LAUNCHES
+    tiny = torch.zeros(1, device="cuda")
+    launch_floor, how_floor = device_ms(tiny.zero_, 200)
     for t in POOL_BWD_TIMED_T:
         args, a1t, cots = pool_backward_case(t, 7, True, False)
 
@@ -477,7 +495,10 @@ def time_pool_backward(card):
         plain_device, how_plain = device_ms(plain, 50)
         plain_ms = time_cuda(plain, 200)
         bound, bound_by = pool_bwd_bound_ms(t, 3, 1)
+        floor = launch_floor * (1 if gated_pool.pool_partition(t)[0] == 1
+                                else 3)
         rows[t] = {"ms": ms, **ms_how(how), "wrapper_ms": wrapper_ms,
+                   "floor_ms": floor, **ms_how(how_floor, "floor_ms"),
                    "plain_ms": plain_ms, "plain_device_ms": plain_device,
                    **ms_how(how_plain, "plain_device_ms"),
                    "bound_ms": bound, "bound_by": bound_by,
@@ -489,7 +510,7 @@ def time_pool_backward(card):
               "plain_device_us": 1e3 * plain_device,
               **ms_how(how_plain, "plain_device_ms"), "bound_us": 1e3 * bound,
               "bound_by": bound_by, "bound_share": bound / ms,
-              "library_us": None, **card})
+              "floor_us": 1e3 * floor, "library_us": None, **card})
     gated_pool.BWD_LAUNCHES = n_bwd  # timing launches are not the path's
     return rows
 
@@ -1288,6 +1309,405 @@ def train_times(flags, runs, card):
     trace("train window (5 bags + Adam step)", window, card)
 
 
+# ------------------------------------------------------ serving modes
+def read_interface(out):
+    """An interface run's output directory: the probability table
+    (key -> [p0, p1, p2, Aterm_var]), the manifests' row counts and the
+    ``.dla`` maps."""
+    with open(os.path.join(out, "GBMresult_probs_class.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["", "0", "1", "2", "3"]:
+        raise AssertionError(f"interface table header {rows[0]}")
+    table = {r[0]: np.array([float(v) for v in r[1:]]) for r in rows[1:]}
+    counts = {}
+    for name in ("manifest_img.csv", "manifest_heat.csv", "move_images.sh"):
+        with open(os.path.join(out, name)) as f:
+            counts[name] = len(f.read().splitlines())
+    dlas = [f for f in os.listdir(out) if f.endswith(".dla")]
+    return table, counts, dlas
+
+
+def check_interface_output(label, out, n_slides):
+    """One row a slide in the table and each manifest, four maps a slide,
+    finite probabilities that sum to 1. Returns the table."""
+    table, counts, dlas = read_interface(out)
+    want = {"manifest_img.csv": n_slides + 1,
+            "manifest_heat.csv": n_slides + 1, "move_images.sh": n_slides}
+    if len(table) != n_slides or counts != want or len(dlas) != 4 * n_slides:
+        raise AssertionError(f"{label}: {len(table)} rows, {counts}, "
+                             f"{len(dlas)} maps for {n_slides} slides")
+    for key, row in table.items():
+        check_probs(f"{label} {key}", row[:3], 3)
+    return table
+
+
+def interface_phase(flags, runs, ckpt, card):
+    """``classify.main([... "--interface"])`` on the training cohort from
+    the trainer's epoch-1 checkpoint, in bf16 and in f32: the two
+    5000-tile slides stream (above the default --stream_tiles 4096), the
+    rest go as one bag each. One pool launch a slide, every pooled T held
+    to plain; the table's probabilities against direct ``classify_slide``
+    / ``classify_slide_streaming`` calls with the same weights (f32 within
+    1e-5, bf16 within the 1e-3 contract). Then the bf16 run's wall time
+    (seconds a slide, tiles/s) and a traced run. Returns (the pool
+    launches of the two runs, the f32 table)."""
+    common = [*TRAIN_ARGS, *flags, "--interface", "--ckpt", ckpt]
+    seen, real = set(), gated_pool._launch
+
+    def launch(a_raw, *rest):
+        seen.add(int(a_raw.shape[0]))
+        return real(a_raw, *rest)
+
+    tables, launches, walls = {}, {}, {}
+    gated_pool._launch = launch
+    try:
+        for dtype, extra in (("bfloat16", []), ("float32", ["--f32"])):
+            root = os.path.join(runs, f"iface_{dtype}")
+            gated_pool.LAUNCHES = 0
+            t0 = time.perf_counter()
+            run_trainer(["--tag", "IF", *common, *extra,
+                         "--output_root", root])
+            walls[dtype] = time.perf_counter() - t0
+            launches[dtype] = gated_pool.LAUNCHES
+            tables[dtype] = check_interface_output(
+                f"interface {dtype}", os.path.join(root, "interface_data"),
+                len(TRAIN_COHORT))
+    finally:
+        gated_pool._launch = real
+
+    cfg = amil.MILConfig()
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg)
+    checkpoint.restore_params(model, ckpt)
+    slides = os.path.join(runs, os.pardir, "slides")
+    gaps, tiles, streamed = {"bfloat16": 0.0, "float32": 0.0}, 0, 0
+    for name in TRAIN_COHORT:
+        builder = roibuilder.RoiBuilder(
+            os.path.join(slides, f"{name}_H&E.scn"), {"roi_size": TRAIN_ROI})
+        tiles += builder.getsize()
+        stream = builder.getsize() > 4096
+        streamed += stream
+        for dtype, cd in (("bfloat16", torch.bfloat16), ("float32", None)):
+            if stream:
+                probs, _, _ = inference.classify_slide_streaming(
+                    model, cfg, builder, resolution=300, compute_dtype=cd)
+            else:
+                probs, _, _ = inference.classify_slide(
+                    model, cfg, builder, resolution=300, compute_dtype=cd)
+            gaps[dtype] = max(gaps[dtype], float(np.abs(
+                tables[dtype][f"{name}_H&E"][:3] - probs).max()))
+    unchecked = sorted(seen - set(MAIN_PATH_T))
+    emit({"phase": "interface_checks", "slides": len(TRAIN_COHORT),
+          "streamed_slides": streamed, "pool_launches": launches,
+          "pooled_T": sorted(seen), "unchecked_T": unchecked,
+          "table_vs_direct_f32": gaps["float32"], "tol_f32": 1e-5,
+          "table_vs_direct_bf16": gaps["bfloat16"], "tol_bf16": 1e-3})
+    if any(n != len(TRAIN_COHORT) for n in launches.values()):
+        raise AssertionError(f"interface pool launches {launches}, want one "
+                             "a slide")
+    if unchecked:
+        raise AssertionError("the interface pooled bags whose size the pool "
+                             f"kernel was not held to plain at: {unchecked}")
+    if gaps["float32"] > 1e-5 or gaps["bfloat16"] > 1e-3:
+        raise AssertionError(f"the interface tables differ from direct "
+                             f"calls: {gaps}")
+
+    argv = ["--tag", "IF", *common, "--output_root",
+            os.path.join(runs, "iface_traced")]
+    n = gated_pool.LAUNCHES
+    emit({"phase": "interface_time", "compute_dtype": "bfloat16",
+          "slides": len(TRAIN_COHORT), "tiles": tiles,
+          "wall_s": walls["bfloat16"], "wall_f32_s": walls["float32"],
+          "s_per_slide": walls["bfloat16"] / len(TRAIN_COHORT),
+          "tiles_per_s": tiles / walls["bfloat16"], **card})
+    trace("interface (classify.main --interface, bf16)",
+          lambda: run_trainer(argv), card)
+    gated_pool.LAUNCHES = n  # the traced run is not the main path's
+    return launches, tables["float32"]
+
+
+def int8_sites(model, tiles, qp, sc):
+    """Every conv site of the full-width int8 forward on ``tiles``: each
+    lowering's int32 accumulation on the card against the float64
+    convolution of the same int8 operands on the CPU (exact): all equal,
+    bit for bit. Returns the site count and the largest |accumulation|."""
+    sites, real = [], quant._conv_i8_acc
+
+    def record(wq, x_i8, *, stride, padding, impl="conv"):
+        sites.append((wq, x_i8, stride, padding))
+        return real(wq, x_i8, stride=stride, padding=padding, impl=impl)
+
+    quant._conv_i8_acc = record
+    try:
+        quant.apply_resnet26_int8(qp, sc, tiles)
+    finally:
+        quant._conv_i8_acc = real
+    biggest = 0
+    for i, (wq, x_i8, stride, padding) in enumerate(sites):
+        want = torch.round(F.conv2d(x_i8.cpu().double(), wq.cpu().double(),
+                                    stride=stride, padding=padding)
+                           ).to(torch.int32)
+        biggest = max(biggest, int(want.abs().max()))
+        for impl in quant.IMPLS:
+            got = real(wq, x_i8, stride=stride, padding=padding,
+                       impl=impl).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8 site {i} ({tuple(wq.shape)}, stride {stride}): "
+                    f"{impl} differs from the exact accumulation by "
+                    f"{int((got - want).abs().max())}")
+    return len(sites), biggest
+
+
+def int8_ab(cnn, qp, sc, card, rounds=2, iters=2):
+    """The int8 extractor by each lowering against the bf16 cuDNN
+    extractor (``apply_resnet26``) at STEM_AB_TILES normalized tiles, in
+    interleaved rounds (A B C D, D C B A), median ms per call by CUDA
+    events (one warm-up call each time), and each one's device time per
+    call from the profiler (all its kernels). The three lowerings'
+    features must be bit-identical."""
+    x = transforms.eval_transform(
+        stem_tiles(STEM_AB_TILES, 400, cnn.conv1.weight.device),
+        resolution=300)
+
+    def bf16():
+        return resnet.apply_resnet26(cnn, x, compute_dtype=torch.bfloat16)
+
+    variants = {"bf16/cudnn": bf16}
+    for impl in quant.IMPLS:
+        variants[f"int8/{impl}"] = functools.partial(
+            quant.apply_resnet26_int8, qp, sc, x, impl=impl)
+    with torch.no_grad():
+        feats = [variants[f"int8/{impl}"]() for impl in quant.IMPLS]
+        same = all(torch.equal(feats[0], f) for f in feats[1:])
+        ref = bf16().float()
+        d_bf16 = float((feats[0] - ref).abs().max() / ref.abs().max())
+        del feats, ref
+        if not same:
+            raise AssertionError("the int8 lowerings' features differ at "
+                                 f"{STEM_AB_TILES} tiles")
+        times = {k: [] for k in variants}
+        for r in range(rounds):
+            order = list(variants) if r % 2 == 0 else list(reversed(variants))
+            for name in order:
+                times[name].append(time_cuda(variants[name], iters,
+                                             warmup=1))
+        device = {}
+        for name, fn in variants.items():
+            ms, how = device_ms(fn, 2)
+            device[name] = {"ms": ms, **ms_how(how)}
+    med = {k: statistics.median(v) for k, v in times.items()}
+    emit({"phase": "int8_ab", "tiles": STEM_AB_TILES, "rounds": rounds,
+          "iters_per_round": iters, "ms": med,
+          "tiles_per_s": {k: STEM_AB_TILES / (v / 1e3) for k, v in med.items()},
+          "over_bf16": {k: med["bf16/cudnn"] / v for k, v in med.items()},
+          "device": device, "lowerings_bit_identical": same,
+          "int8_vs_bf16_features_rel": d_bf16, "all_ms": times, **card})
+
+
+def int8_daemon(model, cfg, slides, calib, card):
+    """The daemon with ``--int8`` over the serving manifest behind a
+    tile-less slide (the oldest file, so it comes first): calibration
+    defers past it to the first slide with tiles (``onepass``), one pool
+    launch a slide, every pooled T held to plain, and each slide's row
+    equal to a direct ``classify_slide_streaming`` call with the int8
+    program calibrated on the same tiles (within the CSV's rounding,
+    1e-5). Returns the pool launches."""
+    root = os.path.join(CACHE, "daemon_int8")
+    os.makedirs(root)
+    ckpt = checkpoint.save(checkpoint.checkpoint_path(root, 0), model)
+    empty = write_slide("empty", 99, (3, 3, 300, 9, 4))
+    os.utime(empty, (1, 1))
+    mfile = os.path.join(root, "slides.txt")
+    with open(mfile, "w") as f:
+        f.write("".join(p + "\n" for p in [empty] + [p for _, p in slides]))
+    argv = ["--manifest", mfile, "--out_root", os.path.join(root, "out"),
+            "--ckpt", ckpt, "--roi_size", "300", "--resolution", "300",
+            "--chunk", "1024", "--settle_secs", "0", "--once", "--int8",
+            "--int8_calib", str(calib.shape[0])]
+    seen, real = set(), gated_pool._launch
+
+    def launch(a_raw, *rest):
+        seen.add(int(a_raw.shape[0]))
+        return real(a_raw, *rest)
+
+    text = io.StringIO()
+    gated_pool._launch = launch
+    gated_pool.LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(text):
+            t0 = time.perf_counter()
+            rc = serve.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        gated_pool._launch = real
+    launches = gated_pool.LAUNCHES
+    log(text.getvalue())
+    if rc != 0:
+        raise AssertionError(f"serve.main({argv}) returned {rc}")
+    rows = read_rows(os.path.join(root, "out"))
+    deferred = "int8 calibration deferred: empty_H&E has no tiles" in \
+        text.getvalue()
+    armed_on_onepass = "calibration tiles from onepass_H&E)" in text.getvalue()
+
+    te = quant.make_int8_transform_extract(model.cnn, calib, 300)
+    gap, tiles = 0.0, 0
+    for _, path in slides:
+        builder = roibuilder.RoiBuilder(path, {"roi_size": 300})
+        tiles += builder.getsize()
+        probs, outs, _ = inference.classify_slide_streaming(
+            model, cfg, builder, resolution=300, chunk=1024,
+            compute_dtype=torch.bfloat16, transform_extract=te)
+        row = rows[builder.getname()]
+        gap = max(gap, float(np.abs(row_probs(row) - probs).max()))
+        if int(row["pred"]) != int(outs["y_pred_hat"]):
+            raise AssertionError(f"int8 daemon row differs: {row}")
+    unchecked = sorted(seen - set(MAIN_PATH_T))
+    emit({"phase": "int8_daemon", "slides": len(rows),
+          "pool_launches": launches, "pooled_T": sorted(seen),
+          "unchecked_T": unchecked, "calibration_deferred": deferred,
+          "armed_on_first_slide_with_tiles": armed_on_onepass,
+          "rows_vs_direct_int8": gap, "tol": 1e-5, "wall_s": wall,
+          "tiles_per_s": tiles / wall, **card})
+    if (len(rows) != len(slides) + 1 or launches != len(rows)
+            or not deferred or not armed_on_onepass or unchecked
+            or gap > 1e-5):
+        raise AssertionError("the int8 daemon's run is not right")
+    return launches
+
+
+def int8_phase(model, cfg, one, slides, p_one, p32_one, flags, runs, ckpt,
+               f32_table, card):
+    """W8A8 int8 at full width on the card: every conv site exact by each
+    lowering (``int8_sites``, 16 tiles of the one-pass slide), the
+    slide-probability drift of the 2000-tile slide from the bf16 and f32
+    paths (< 2e-3; the argmax kept unless the f32 top two lie closer than
+    the drift itself), the daemon with ``--int8``, ``--interface --int8``
+    on the training cohort, and the A/B against the bf16 extractor.
+    Returns the pool launches of the daemon and interface runs."""
+    calib = quant.calib_tiles_from_builder(one, 256, 300)
+    qp, sc = quant.quantize_and_calibrate(model.cnn, calib)
+    tiles = transforms.eval_transform(torch.from_numpy(np.load(
+        one.params["data_cache"], mmap_mode="r")[:16].copy()).cuda(),
+        resolution=300)
+    n_sites, biggest = int8_sites(model, tiles, qp, sc)
+    del tiles
+
+    te = quant.make_int8_transform_extract(model.cnn, calib, 300,
+                                           qp_sc=(qp, sc))
+    p8, _, _ = inference.classify_slide_streaming(
+        model, cfg, one, resolution=300, chunk=1024, transform_extract=te)
+    check_probs("int8 one-pass slide", p8, cfg.n_classes)
+    drift = {"vs_bf16": float(np.abs(p8 - p_one).max()),
+             "vs_f32": float(np.abs(p8 - p32_one).max())}
+    top2 = np.sort(p32_one)[-2:]
+    margin = float(top2[1] - top2[0])
+    kept = int(np.argmax(p8)) == int(np.argmax(p32_one))
+    emit({"phase": "int8_checks", "conv_sites": n_sites,
+          "max_abs_accumulation": biggest, "float32_exact_below": 2 ** 24,
+          "sites_exact_every_lowering": True, "tiles": one.getsize(),
+          "probs_int8": p8.tolist(), "probs_f32": p32_one.tolist(),
+          "drift": drift, "tol": 2e-3, "argmax_kept": kept,
+          "f32_top2_margin": margin})
+    if max(drift.values()) >= 2e-3 or not (kept or margin < drift["vs_f32"]):
+        raise AssertionError(f"int8 drift {drift}, argmax kept {kept}")
+
+    launches = {"serve_daemon_int8": int8_daemon(model, cfg, slides, calib,
+                                                 card)}
+    root = os.path.join(runs, "iface_int8")
+    gated_pool.LAUNCHES = 0
+    run_trainer(["--tag", "IF", *TRAIN_ARGS, *flags, "--interface", "--ckpt",
+                 ckpt, "--int8", "--output_root", root])
+    launches["interface_int8"] = gated_pool.LAUNCHES
+    table = check_interface_output(
+        "interface int8", os.path.join(root, "interface_data"),
+        len(TRAIN_COHORT))
+    emit({"phase": "interface_int8", "pool_launches":
+          launches["interface_int8"],
+          "drift_vs_f32_interface": max(
+              float(np.abs(table[k][:3] - f32_table[k][:3]).max())
+              for k in table)})
+    if launches["interface_int8"] != len(TRAIN_COHORT):
+        raise AssertionError("interface --int8 did not pool once a slide")
+    int8_ab(model.cnn, qp, sc, card)
+    return launches
+
+
+def profile_phase(flags, runs, card):
+    """``--profile --tensorboard`` for one epoch: the Chrome trace under
+    ``<run>/profile/`` holds the card's kernels, the summary's
+    ``step_times`` at least one step, and the run exits 0 (``--tensorboard``
+    is a no-op where tensorboard is not installed; whether it wrote is
+    reported). Returns (forward, backward) pool launches."""
+    gated_pool.LAUNCHES = gated_pool.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    run_trainer(["--tag", "PROF", "--epoch_start", "0", "--epoch_end", "0",
+                 "--profile", "--tensorboard", *TRAIN_ARGS, *flags,
+                 "--output_root", runs])
+    wall = time.perf_counter() - t0
+    launches = gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES
+    run = os.path.join(runs, "run_PROF")
+    prof = os.path.join(run, "profile")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".json")]
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for s0, e0 in spans:
+        busy += max(0.0, e0 - max(s0, end))
+        end = max(end, e0)
+    stamps = [e["ts"] for e in events if "ts" in e]
+    span_us = (max(stamps) - min(stamps)) if stamps else 0.0
+    steps = read_summary(run, 0).get("step_times", {})
+    emit({"phase": "profile", "wall_s": wall, "traces": len(traces),
+          "trace_bytes": os.path.getsize(traces[0]),
+          "device_events": len(spans), "trace_span_s": span_us / 1e6,
+          "device_busy_s": busy / 1e6,
+          "device_idle_share": 1.0 - busy / span_us if span_us else None,
+          "step_times": steps, "pool_launches": launches[0],
+          "pool_backward_launches": launches[1],
+          "tensorboard_wrote": os.path.isdir(
+              os.path.join(runs, "runs", "TAG_PROF")), **card})
+    if len(traces) != 1 or not spans or steps.get("steps", 0) < 1:
+        raise AssertionError("--profile wrote no trace of the card's "
+                             "kernels or no step times")
+    return launches
+
+
+def build_caches_phase(slides, card):
+    """``data/build_caches.py --workers 2`` over links to the serving
+    slides' files, into a fresh cache directory: the caches must be byte
+    for byte the ones ``RoiBuilder`` wrote for the same slides."""
+    root = os.path.join(CACHE, "build_caches")
+    os.makedirs(os.path.join(root, "imgs"))
+    os.makedirs(os.path.join(root, "cache"))
+    for _, path in slides:
+        os.link(path, os.path.join(root, "imgs", os.path.basename(path)))
+    argv = ["--data_root", root, "--image_dir", "imgs", "--roi_size", "300",
+            "--glob", "*.npy", "--workers", "2"]
+    os.environ["CACHE_DIR"] = os.path.join(root, "cache")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            rc = build_caches.main(argv)
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ["CACHE_DIR"] = CACHE
+    if rc != 0:
+        raise AssertionError(f"build_caches.main({argv}) returned {rc}")
+    names = sorted(os.listdir(os.path.join(root, "cache")))
+    differ = [n for n in names
+              if not filecmp.cmp(os.path.join(root, "cache", n),
+                                 os.path.join(CACHE, n), shallow=False)]
+    emit({"phase": "build_caches", "workers": 2, "slides": len(slides),
+          "cache_files": len(names), "differ_from_roibuilder": differ,
+          "wall_s": wall, **card})
+    if len(names) != 2 * len(slides) or differ:
+        raise AssertionError(f"build_caches wrote {names}; differing {differ}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -1442,6 +1862,18 @@ def main():
         train_grad_card_vs_cpu(one)
         train_times(flags, runs, card)
         bwd_times = time_pool_backward(card)
+
+        # the trainer's serving and instrumentation modes, from the
+        # trained epoch-1 checkpoint
+        ckpt = checkpoint.checkpoint_path(os.path.join(runs, "run_U"), 1)
+        iface, f32_table = interface_phase(flags, runs, ckpt, card)
+        launches["interface_bf16"] = iface["bfloat16"]
+        launches["interface_f32"] = iface["float32"]
+        launches.update(int8_phase(model, cfg, one, slides, p_one, p32_one,
+                                   flags, runs, ckpt, f32_table, card))
+        launches["train_profile"], bwd_profile = profile_phase(flags, runs,
+                                                               card)
+        build_caches_phase(slides, card)
     finally:
         shutil.rmtree(CACHE, ignore_errors=True)
 
@@ -1468,14 +1900,15 @@ def main():
         "name": "gated_attention_pool_backward", "route": "cuda",
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
-        "launches": bwd_launches, "max_abs_err": bwd_err,
+        "launches": bwd_launches + bwd_profile, "max_abs_err": bwd_err,
         **bwd_times[POOL_BWD_TIMED_T[0]], "library_ms": None,
         "shape": {"T": POOL_BWD_TIMED_T[0], "K": 3, "O": 1,
                   "cotangents": "dM"},
         "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
         "bound_share_by_T": {t: r["bound_share"]
                              for t, r in bwd_times.items()},
-        "launches_by_path": {"train_classify": bwd_launches}}]})
+        "launches_by_path": {"train_classify": bwd_launches,
+                             "train_profile": bwd_profile}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

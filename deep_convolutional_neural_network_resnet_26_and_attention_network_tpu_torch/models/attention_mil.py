@@ -197,9 +197,13 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None):
 
 def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
                         mask=None, train: bool = False, generator=None,
-                        scores=None, keep=None, compute_dtype=None):
+                        scores=None, keep=None, compute_dtype=None,
+                        extractor=None):
     """Bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask: optional
     [T] validity (1 = real tile). Returns the reference's 13-key dict.
+    ``extractor``, a ``(cnn, tiles) -> [T, L]`` function, replaces the
+    ResNet-26 as the tile embedder (the W8A8 int8 serving path,
+    ``ops.quant.make_int8_extractor``); it gets the tiles detached.
 
     ``train=True`` subsamples the tiles and applies dropout, with the noise
     given (``scores`` [T] Gumbel draws, ``keep`` [k, L] boolean for the
@@ -212,7 +216,8 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
     if not train:
         with torch.no_grad():
             return _bag_forward(model, tiles, label, cfg, mask, None,
-                                compute_dtype, remat=False)
+                                compute_dtype, remat=False,
+                                extractor=extractor)
     T = tiles.shape[0]
     need = scores is None or (keep is None and cfg.dropout > 0.0)
     if need and generator is None:
@@ -224,17 +229,20 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
     if keep is None and cfg.dropout > 0.0:
         keep = dropout_keep(generator, (tiles.shape[0], cfg.L), cfg.dropout)
     outs = _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype,
-                        remat=cfg.remat)
+                        remat=cfg.remat, extractor=extractor)
     return {k: (v if k == "loss" else v.detach()) for k, v in outs.items()}
 
 
 def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
-                 remat):
+                 remat, extractor=None):
     # the CNN input carries no gradient, like the reference's .detach()
     # (reference: gbm/model.py:194)
-    H = resnet.apply_resnet26(model.cnn, tiles.detach(),
-                              compute_dtype=compute_dtype, stem=cfg.stem,
-                              remat=remat).float()                # [T, L]
+    if extractor is not None:
+        H = extractor(model.cnn, tiles.detach()).float()          # [T, L]
+    else:
+        H = resnet.apply_resnet26(model.cnn, tiles.detach(),
+                                  compute_dtype=compute_dtype, stem=cfg.stem,
+                                  remat=remat).float()            # [T, L]
     KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
 
     pooled = attention_pool(model, H, cfg, mask=mask, keep=keep)

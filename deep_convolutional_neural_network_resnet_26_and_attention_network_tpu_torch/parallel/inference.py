@@ -124,6 +124,7 @@ def _pool_outputs(model, H, cfg):
 
 
 def make_batched_infer(cfg: amil.MILConfig, *, compute_dtype=torch.bfloat16,
+                       extractor=None,
                        transform_resolution: int | None = None):
     """Batched inference for one card: ``fn(model, bags)`` with ``bags`` a
     list of ``[T_i, H, W, 3]`` tensors on the model's device. All the
@@ -131,8 +132,10 @@ def make_batched_infer(cfg: amil.MILConfig, *, compute_dtype=torch.bfloat16,
     slide pools on its own rows: one pool-kernel launch per slide. No
     bucket padding: eager PyTorch compiles nothing per shape, so the
     outputs are the JAX package's once it has trimmed its padded ones.
-    With ``transform_resolution`` the bags are raw uint8 and the eval
-    transform runs on the card, as in the JAX package. Returns a dict of
+    ``extractor``, a ``(cnn, tiles) -> [N, L]`` function, replaces the
+    ResNet-26 (the W8A8 int8 serving path). With ``transform_resolution``
+    the bags are raw uint8 and the eval transform runs on the card, as in
+    the JAX package. Returns a dict of
     host arrays: ``y_pred`` [B, 1, C], ``y_pred_hat`` [B], ``Mterm``
     [B, K, O], ``Aterm_var`` [B] and ``Aterm``, a list of [K, T_i]."""
     def infer(model, bags):
@@ -143,9 +146,12 @@ def make_batched_infer(cfg: amil.MILConfig, *, compute_dtype=torch.bfloat16,
         if transform_resolution is not None:
             tiles = transforms.eval_transform(
                 tiles, resolution=transform_resolution)
-        H = resnet.apply_resnet26(model.cnn, tiles,
-                                  compute_dtype=compute_dtype,
-                                  stem=cfg.stem).float()
+        if extractor is not None:
+            H = extractor(model.cnn, tiles).float()
+        else:
+            H = resnet.apply_resnet26(model.cnn, tiles,
+                                      compute_dtype=compute_dtype,
+                                      stem=cfg.stem).float()
         rows = [_pool_outputs(model, h, cfg)[1]
                 for h in torch.split(H, sizes, dim=0)]
         return {"y_pred": np.stack([r["y_pred"] for r in rows]),

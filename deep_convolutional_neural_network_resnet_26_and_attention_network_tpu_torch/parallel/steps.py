@@ -65,16 +65,19 @@ def make_bag_grad(cfg: amil.MILConfig, *, compute_dtype=None):
 
 
 def make_bag_forward(cfg: amil.MILConfig, *, train: bool = False,
-                     compute_dtype=None):
+                     compute_dtype=None, extractor=None):
     """Single-bag forward without autograd: ``fn(model, tiles, mask, label,
     generator=None) -> dict``; ``train=True`` takes the training forward's
-    subsample and dropout (validation before the Check stage does)."""
+    subsample and dropout (validation before the Check stage does).
+    ``extractor`` swaps the tile embedder (the W8A8 int8 serving path,
+    ``ops.quant.make_int8_extractor``)."""
 
     def fwd(model, tiles, mask, label, generator=None):
         with torch.no_grad():
             return amil.apply_attention_mil(
                 model, tiles, label, cfg, mask=mask, train=train,
-                generator=generator, compute_dtype=compute_dtype)
+                generator=generator, compute_dtype=compute_dtype,
+                extractor=extractor)
 
     return fwd
 

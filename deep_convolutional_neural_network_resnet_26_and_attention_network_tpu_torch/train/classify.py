@@ -1,15 +1,20 @@
-"""Attention-MIL training and validation CLI: the live driver.
+"""Attention-MIL training, validation and interface CLI: the live driver.
 
 Counterpart of ``train/classify.py`` in the JAX package, after the
 reference entry point ``gbm/classify_combined.py`` (flags
---tag --ckpt --fold --epoch_start --epoch_end --transfer --test_only;
-reference: gbm/classify_combined.py:44-87) and its artifacts (per-epoch
-``train_step-<epoch:03d>.model`` checkpoints in the JAX package's format,
-``*summary.json`` stats, ``<epoch>predictions.json``, the split JSON and
-``model_structure.txt``). One device: the card unless ``main`` is given
-``device="cpu"``. Each bag's gradient is added into the parameters'
-gradients; every ``--accum`` bags (reference: :446-454), and on a partial
-tail window, Adam steps at the staged learning rate (reference: :110-138).
+--tag --ckpt --fold --epoch_start --epoch_end --transfer --test_only
+--interface; reference: gbm/classify_combined.py:44-87) and its artifacts
+(per-epoch ``train_step-<epoch:03d>.model`` checkpoints in the JAX
+package's format, ``*summary.json`` stats, ``<epoch>predictions.json``,
+the split JSON, ``model_structure.txt``, and the caMicroscope manifests,
+``.dla`` maps and result tables of ``--interface``). One device: the card
+unless ``main`` is given ``device="cpu"``. Each bag's gradient is added
+into the parameters' gradients; every ``--accum`` bags (reference:
+:446-454), and on a partial tail window, Adam steps at the staged learning
+rate (reference: :110-138). ``--int8`` serves the extractor W8A8
+(``ops/quant.py``) in ``--interface`` and ``--test_only``; ``--profile``
+traces the first trained epoch (``utils/profiling.py``); ``--tensorboard``
+logs each epoch's stats (``utils/tb.py``, a no-op without tensorboard).
 
 Every random stream of epoch E is a pure function of (seed, E, bag index):
 the bag order (``loader.epoch_loader_seed``), the tile cap and the crop /
@@ -18,16 +23,17 @@ and dropout masks (:meth:`Driver.bag_generator`). So a run resumed from
 epoch E-1's checkpoint replays epoch E of the uninterrupted run.
 
 Not ported yet, each refusing to start with the ``ROADMAP.md`` item that
-brings it: ``--interface``, ``--peak``, ``--n_vis`` above 0 (the
-heatmap figures; the default is 0 here), ``--tensorboard``,
-``--profile``, ``--mesh`` and ``--int8``. The JAX trainer's figures
-(``plot_gbm_metrics``, ``plot_prediction_summary``) are left out with
-them; the data behind them is written.
+brings it: ``--peak`` and ``--n_vis`` above 0 (the figures, slice (d);
+the default is 0 here, so ``--interface`` draws no heatmap panels) and
+``--mesh`` (A.10). The JAX trainer's figures (``plot_gbm_metrics``,
+``plot_prediction_summary``) wait with them; the data behind them is
+written.
 
 Run ``python -m deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train.classify --help``.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -40,18 +46,15 @@ from ..data import dataset as ds_mod
 from ..data.loader import epoch_loader_seed, prefetch_iter, sample_data
 from ..models import attention_mil as amil
 from ..parallel import inference, steps
-from ..utils import helpers, plots
+from ..utils import helpers, plots, profiling
 from . import DIVERGED_EXIT, PreemptionLatch, checkpoint, schedule
 
 TARGET_NAMES = ["A", "B", "C"]
 # the ROADMAP items that bring the options this port does not have yet
-NOT_PORTED = {"interface": "slice (e) (the caMicroscope interface mode)",
-              "peak": "slice (e) (weight and activation inspection)",
-              "n_vis": "slice (d) (the heatmap figures)",
-              "tensorboard": "slice (f) (TensorBoard epoch stats)",
-              "profile": "slice (f) (the profiler trace)",
-              "mesh": "A.10 (multi-GPU)",
-              "int8": "A.11 (int8 serving)"}
+NOT_PORTED = {"peak": "slice (d) (the figures: weight and activation "
+                      "inspection)",
+              "n_vis": "slice (d) (the figures: heatmap panels)",
+              "mesh": "A.10 (multi-GPU)"}
 
 
 def build_argparser():
@@ -73,12 +76,14 @@ def build_argparser():
                         "linear layers stay freshly initialized")
     p.add_argument("--peak", action="store_true",
                    help="Inspect weight matrices / activations and exit "
-                        "(not ported yet; refuses to start)")
+                        "(not ported yet, ROADMAP slice (d); refuses to "
+                        "start)")
     p.add_argument("--test_only", action="store_true",
                    help="Exit after one validation pass")
     p.add_argument("--interface", action="store_true",
-                   help="Run in caMicroscope interface mode (not ported "
-                        "yet; refuses to start)")
+                   help="Run in caMicroscope interface mode: classify every "
+                        "slide, write .dla maps, manifests and result "
+                        "tables under <output_root>/interface_data")
     # configuration the reference hardcoded
     p.add_argument("--data_root", default="/raid/GHP Immunohistochemistry/")
     p.add_argument("--image_dir", default="All_HE_scans_GBM_AN")
@@ -107,29 +112,37 @@ def build_argparser():
                         "large training bags")
     p.add_argument("--n_vis", default=0, type=int,
                    help="slides visualized every 10 epochs (the figures are "
-                        "not ported yet: above 0 refuses to start)")
+                        "not ported yet, ROADMAP slice (d): above 0 refuses "
+                        "to start)")
     p.add_argument("--tensorboard", action="store_true",
-                   help="stream epoch stats to TensorBoard (not ported yet; "
-                        "refuses to start)")
+                   help="stream epoch stats to runs/TAG_<tag> under "
+                        "--output_root (legacy SummaryWriter parity; a "
+                        "no-op without the tensorboard package)")
     p.add_argument("--profile", action="store_true",
-                   help="trace the first trained epoch (not ported yet; "
-                        "refuses to start)")
+                   help="trace the first trained epoch (host, and the "
+                        "card's kernels and copies) into <run>/profile/ as "
+                        "a Chrome trace, and add per-step wall-time "
+                        "percentiles to each epoch's stats")
     p.add_argument("--mesh", default=0, type=int,
-                   help="train over N cards (not ported yet; refuses to "
-                        "start)")
+                   help="train over N cards (not ported yet, ROADMAP "
+                        "A.10; refuses to start)")
     p.add_argument("--train_pad", default=None, type=int,
                    help="zero-pad margin for the train random-crop jitter "
                         "(default: the reference's 100 px at roi 1200, "
                         "scaled to --roi_size); 0 disables the pad/crop")
     p.add_argument("--stream_tiles", default=4096, type=int,
-                   help="validation slides with more tiles than this "
-                        "stream chunks through the extractor instead of "
-                        "holding the whole f32 bag on the card")
+                   help="slides with more tiles than this stream chunks "
+                        "through the extractor in validation/interface "
+                        "instead of holding the whole f32 bag on the card")
     p.add_argument("--int8", action="store_true",
-                   help="W8A8 int8 serving (not ported yet; refuses to "
-                        "start)")
+                   help="serve the extractor W8A8 int8-quantized "
+                        "(ops/quant.py): per-channel int8 weights and "
+                        "activation scales calibrated on the test slides' "
+                        "tiles. Serving only (--interface / --test_only); "
+                        "measure the probability drift on your checkpoint "
+                        "first")
     p.add_argument("--int8_calib", default=256, type=int,
-                   help="calibration tiles for --int8 (not ported yet)")
+                   help="calibration tiles for the --int8 activation scales")
     return p
 
 
@@ -180,6 +193,44 @@ class Driver:
             cfg, train=False, compute_dtype=self.compute_dtype)
         self.fwd_train = steps.make_bag_forward(
             cfg, train=True, compute_dtype=self.compute_dtype)
+        # the streaming per-chunk program; None is the default extractor,
+        # enable_int8 swaps in the int8 one
+        self.transform_extract = None
+
+    def enable_int8(self, builders):
+        """Swap the eval and streaming extractors for the W8A8 int8
+        serving path (``ops/quant.py``): quantize the (restored) cnn weights
+        once, calibrate the activation scales on up to ``--int8_calib``
+        eval-transformed tiles from ``builders`` (only the leading slice of
+        each memory-mapped cache is read; tile-less slides are skipped),
+        and rebuild ``fwd_eval`` and the streaming program around the
+        quantized forward. Serving only: the quantized closures fix the
+        weights when built and ignore the live parameters."""
+        from ..ops import quant
+
+        want = max(int(self.args.int8_calib), 1)
+        chunks, n = [], 0
+        for b in builders:
+            tiles = quant.calib_tiles_from_builder(b, want - n,
+                                                   self.args.resolution)
+            if tiles is None:
+                continue
+            chunks.append(tiles)
+            n += tiles.shape[0]
+            if n >= want:
+                break
+        if n == 0:
+            raise RuntimeError("--int8: no slides with tiles available "
+                               "to calibrate on")
+        calib = torch.cat(chunks, dim=0)
+        qp_sc = quant.quantize_and_calibrate(self.model.cnn, calib)
+        self.fwd_eval = steps.make_bag_forward(
+            self.cfg, train=False, compute_dtype=self.compute_dtype,
+            extractor=quant.make_int8_extractor(self.model.cnn, calib,
+                                                qp_sc=qp_sc))
+        self.transform_extract = quant.make_int8_transform_extract(
+            self.model.cnn, calib, self.args.resolution, qp_sc=qp_sc)
+        print(f"int8: W8A8 extractor armed ({n} calibration tiles)")
 
     def _halt_non_finite(self, epoch: int, loss_sum: float) -> bool:
         """A NaN/Inf training loss halts the run BEFORE checkpointing, so
@@ -248,13 +299,19 @@ class Driver:
         batch_count = 0
         n = 0
         t0 = time.time()
+        timer = profiling.StepTimer() if self.args.profile else None
         for tiles, mask, label in loader:
-            outs = self.grad_fn(self.model, tiles, mask, label,
-                                self.bag_generator(epoch, n))
-            batch_count += 1
-            if batch_count >= self.args.accum:
-                steps.apply_updates(self.optimizer, stage.lr)
-                batch_count = 0
+            with (timer.step() if timer is not None
+                  else contextlib.nullcontext()):
+                outs = self.grad_fn(self.model, tiles, mask, label,
+                                    self.bag_generator(epoch, n))
+                batch_count += 1
+                if batch_count >= self.args.accum:
+                    steps.apply_updates(self.optimizer, stage.lr)
+                    batch_count = 0
+                if timer is not None and self.device.type == "cuda":
+                    # a step's time is the card's, not the enqueue's
+                    torch.cuda.synchronize(self.device)
             for k in keys:
                 dev_metrics[k].append(outs[k])
             labels.append(label)
@@ -264,6 +321,8 @@ class Driver:
             # gradients (the reference's un-zeroed .grad buffers carried
             # them into the next epoch; see PARITY.md)
             steps.apply_updates(self.optimizer, stage.lr)
+        if timer is not None:
+            epoch_stats["step_times"] = timer.summary()
         epoch_stats["input_stall_fraction"] = loader.stall_fraction()
         fetched = {k: torch.stack(v).float().cpu().numpy() if v
                    else np.zeros((0,)) for k, v in dev_metrics.items()}
@@ -331,7 +390,8 @@ class Driver:
                 _, souts, _ = inference.classify_slide_streaming(
                     self.model, self.cfg, payload,
                     resolution=self.args.resolution,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype,
+                    transform_extract=self.transform_extract)
                 outs = {k: torch.as_tensor(np.asarray(v)) for k, v in
                         inference.streaming_eval_outputs(
                             souts, label, self.cfg).items()}
@@ -378,6 +438,92 @@ class Driver:
         print(f"V: Loss {epoch_stats['valid_loss']:.3f}; "
               f"Error {100 * epoch_stats['valid_err']:.2f}%")
 
+    # -------------------------------------------------------- interface
+    def interface(self, epoch: int, dataset):
+        """caMicroscope batch-inference mode (reference:
+        gbm/classify_combined.py:221-298): every slide of the cohort is
+        classified, slides above ``--stream_tiles`` tiles through the
+        streaming path and the rest as one bag each (loaded on a prefetch
+        thread), one pool launch a slide. Writes, in the output directory,
+        ``manifest_img.csv``, ``manifest_heat.csv``, ``move_images.sh``,
+        the ``.dla`` maps of each slide, ``GBMresult_probs_class.csv``
+        (probabilities and ``Aterm_var``) and ``GBMdata_slideEBs_class.csv``
+        (label and flattened ``Mterm``), as the JAX package does, then
+        prints the tile counts and the classification report."""
+        print("===> INTERFACING TO CAMICROSCOPE")
+        dataset.interface()
+        dataset.NewResolution(self.args.resolution)
+        out = self.output_dir
+
+        def produce():
+            # normal slides load (cache IO, transform) on a prefetch
+            # thread; oversized slides are marked and stream on the
+            # consumer side
+            for idx in range(len(dataset)):
+                builder = dataset.all_builders[idx]
+                if builder.getsize() > self.stream_tiles:
+                    yield "stream", builder, None, None
+                else:
+                    tiles, _, raster, _ = dataset[idx]
+                    yield "bag", builder, tiles, raster
+
+        with open(f"{out}/move_images.sh", "w+") as f_tomove, \
+                open(f"{out}/manifest_img.csv", "w+") as f_img, \
+                open(f"{out}/manifest_heat.csv", "w+") as f_heat:
+            f_img.write("path,studyid,clinicaltrialsubjectid,imageid\n")
+            f_heat.write("path,studyid,clinicaltrialsubjectid,imageid\n")
+            predictions, labels = [], []
+            ccls, slide_ebs, l_ntiles = {}, {}, []
+            for kind, builder, tiles, raster in prefetch_iter(produce(),
+                                                              depth=2):
+                meta = builder.getmeta()
+                label = int(np.asarray(meta["outcome_tensor"]).ravel()[0])
+                if kind == "stream":
+                    _, outs, raster = inference.classify_slide_streaming(
+                        self.model, self.cfg, builder,
+                        resolution=self.args.resolution,
+                        compute_dtype=self.compute_dtype,
+                        transform_extract=self.transform_extract)
+                    T = raster.shape[0]
+                else:
+                    T = tiles.shape[0]
+                    outs = self.fwd_eval(
+                        self.model, tiles,
+                        torch.ones(T, dtype=torch.float32,
+                                   device=tiles.device), label)
+                    outs = {k: v.float().cpu().numpy()
+                            for k, v in outs.items()}
+                l_ntiles.append(meta["ntiles"])
+                image_name = meta.get("caMIC_image_name", meta["basename"])
+                id_name = meta.get("caMIC_id_name", meta["basename"])
+                study = meta.get("caMIC_study", "gbm-classif-nn")
+                f_img.write(f"{image_name},{study},{id_name},{id_name}\n")
+                f_tomove.write(f"cp '{meta['fullpath']}' "
+                               f"{out}/gbm_validation_set/\n")
+                sample_key = meta.get("Sample Name", meta["basename"])
+                probs = np.asarray(outs["y_pred"]).ravel()
+                avar = float(outs["Aterm_var"])
+                ccls[sample_key] = np.append(probs, avar)
+                slide_ebs[sample_key] = np.append(
+                    float(label), np.asarray(outs["Mterm"]).ravel())
+                predictions.append(int(outs["y_pred_hat"]))
+                labels.append(label)
+                print(id_name, "| true:", meta.get("outcome_item", label),
+                      "| probs:", probs, "| Avar:", avar)
+                helpers.write_map(meta, epoch, np.asarray(raster),
+                                  np.asarray(outs["Aterm"])[:, :T], f_heat,
+                                  out)
+        helpers.write_frame_csv(os.path.join(out, "GBMresult_probs_class.csv"),
+                                ccls)
+        helpers.write_frame_csv(
+            os.path.join(out, "GBMdata_slideEBs_class.csv"), slide_ebs)
+        print("NTILES = ", l_ntiles)
+        print(helpers.classification_report_text(
+            helpers.classification_report(labels, predictions,
+                                          labels=[0, 1, 2],
+                                          target_names=TARGET_NAMES),
+            TARGET_NAMES))
+
 
 def _refuse_not_ported(args):
     for flag, item in NOT_PORTED.items():
@@ -394,7 +540,10 @@ def main(argv=None, *, device=None):
     _refuse_not_ported(args)
     print(args)
     device = resolve_device(device)
-    output_dir = os.path.join(args.output_root, f"run_{args.tag}")
+    if args.interface:
+        output_dir = os.path.join(args.output_root, "interface_data")
+    else:
+        output_dir = os.path.join(args.output_root, f"run_{args.tag}")
     os.makedirs(output_dir, exist_ok=True)
 
     dataset = ds_mod.GHPSingleBagDatasetSimple(
@@ -428,9 +577,30 @@ def main(argv=None, *, device=None):
             checkpoint.restore_opt_state(driver.optimizer, driver.model,
                                          args.ckpt)
 
+    if args.int8:
+        if not (args.interface or args.test_only):
+            print("error: --int8 is a serving path; use it with "
+                  "--interface or --test_only", file=sys.stderr)
+            return 2
+        if (args.test_only
+                and schedule.stage_for_epoch(args.epoch_start,
+                                             test=True).train_mode):
+            # pre-Check stages validate normal bags with the train-mode
+            # noise (reference parity); that path keeps the float
+            # extractor, so only streamed oversized bags would quantize
+            print("note: --test_only at a pre-Check epoch uses the "
+                  "train-mode forward for normal bags; --int8 applies "
+                  "only to the eval/streaming paths")
+        driver.enable_int8(list(dataset.test_slide_builders)
+                           or list(dataset.all_builders))
+
     if args.epoch_start == 0:
         with open(os.path.join(output_dir, "model_structure.txt"), "w+") as f:
             f.write(helpers.model_summary(driver.model))
+
+    if args.interface:
+        driver.interface(0, dataset)
+        return 0
 
     if args.test_only:
         epoch_stats = {}
@@ -438,17 +608,33 @@ def main(argv=None, *, device=None):
         helpers.savestats(args, output_dir, args.epoch_start, epoch_stats)
         return 0
 
+    tb_writer = None
+    if args.tensorboard:
+        from ..utils.tb import EpochWriter
+
+        tb_writer = EpochWriter(os.path.join(args.output_root, "runs",
+                                             f"TAG_{args.tag}"))
     latch = PreemptionLatch().install()
     try:
         for ep in range(args.epoch_start, args.epoch_end + 1):
             epoch_stats = {}
-            if not driver.train_epoch(ep, dataset, epoch_stats):
+            # --profile traces the first trained epoch only: a trace grows
+            # with wall time, and one epoch answers where the steps go
+            trace_ctx = (profiling.trace(os.path.join(output_dir, "profile"),
+                                         device=device)
+                         if args.profile and ep == args.epoch_start
+                         else contextlib.nullcontext())
+            with trace_ctx:
+                keep_going = driver.train_epoch(ep, dataset, epoch_stats)
+            if not keep_going:
                 break  # Stop stage, or a halt on a non-finite loss
             if ep % 5 == 0:
                 driver.validate(ep, dataset, epoch_stats)
                 helpers.savestats(args, output_dir, ep, epoch_stats)
                 # the JAX trainer redraws plot_gbm_metrics here; the
                 # figures wait for ROADMAP slice (d)
+            if tb_writer is not None:
+                tb_writer.log_epoch(ep, epoch_stats)
             if latch.stop_requested():
                 # epoch ep's checkpoint is submitted; the wait() below
                 # makes it durable before the clean exit
@@ -457,6 +643,8 @@ def main(argv=None, *, device=None):
                 break
     finally:
         latch.restore()
+    if tb_writer is not None:
+        tb_writer.close()
     driver.ckpt_writer.wait()  # the last epoch's checkpoint must be durable
     # a run halted on divergence must be told apart from success (the Stop
     # stage's break is a clean finish)

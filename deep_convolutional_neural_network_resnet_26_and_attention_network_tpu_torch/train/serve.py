@@ -23,11 +23,16 @@ reshaped into a restartable service).
   * ``--prewarm TILES`` builds the pool kernel's library and runs one zero
     chunk of min(``--chunk``, TILES) tiles through the extractor and the
     pool, so the first slide of at least that many tiles pays neither
-    ``nvcc`` nor cuDNN's first call at the chunk shape.
+    ``nvcc`` nor cuDNN's first call at the chunk shape;
+  * ``--int8`` serves the W8A8 int8 extractor (``ops/quant.py``): it
+    quantizes the weights and calibrates the activation scales on the
+    first slide that has tiles (a daemon has no cohort up front), then the
+    streaming per-chunk program and the ``--batch`` group's extractor are
+    the quantized ones.
 
-``--int8``, ``--bundle`` and ``--mesh`` are not ported yet and refuse to
-start. The device is an argument of :class:`SlideServer` and :func:`main`
-(the card by default), not a flag.
+``--bundle`` (ROADMAP A.9) and ``--mesh`` (A.10) are not ported yet and
+refuse to start. The device is an argument of :class:`SlideServer` and
+:func:`main` (the card by default), not a flag.
 
 Run::
 
@@ -59,8 +64,7 @@ from .classify import make_config
 SLIDE_EXTS = (".scn", ".svs", ".tif", ".tiff", ".npy")
 CSV_HEADER = ("name,prob_0,prob_1,prob_2,pred,Aterm_var,ntiles,secs\n")
 # the ROADMAP items that bring the options this port does not have yet
-NOT_PORTED = {"int8": "A.11 (int8 serving)",
-              "bundle": "A.9 (AOT deployment bundles)",
+NOT_PORTED = {"bundle": "A.9 (AOT deployment bundles)",
               "mesh": "A.10 (multi-GPU)"}
 
 
@@ -84,13 +88,14 @@ def build_argparser():
     p.add_argument("--f32", action="store_true",
                    help="float32 convs and matmuls instead of bf16")
     p.add_argument("--int8", action="store_true",
-                   help="the W8A8 int8 extractor: not ported yet (ROADMAP "
-                        "A.11); refuses to start")
+                   help="serve the W8A8 int8 extractor (ops/quant.py); "
+                        "activation scales calibrate on the first slide "
+                        "with tiles")
     p.add_argument("--bundle", default=None,
                    help="serve an AOT deployment bundle: not ported yet "
                         "(ROADMAP A.9); refuses to start")
     p.add_argument("--int8_calib", default=256, type=int,
-                   help="calibration tiles for --int8 (not ported yet)")
+                   help="calibration tiles for the --int8 activation scales")
     p.add_argument("--chunk", default=1024, type=int,
                    help="streaming chunk (tiles per extractor call)")
     p.add_argument("--batch", default=1, type=int,
@@ -118,7 +123,9 @@ def build_argparser():
                         "tiles through the extractor and the pool, so the "
                         "first slide of at least that many tiles pays "
                         "neither nvcc nor cuDNN's first call at the chunk "
-                        "shape. Shapes follow --roi_size and --chunk")
+                        "shape. Shapes follow --roi_size and --chunk; under "
+                        "--int8 the extractor is left out (it is built "
+                        "after calibration)")
     p.add_argument("--once", action="store_true",
                    help="process the current backlog, then exit")
     p.add_argument("--seed", default=0, type=int)
@@ -161,9 +168,12 @@ class SlideServer:
         else:
             print("serve: WARNING: no --ckpt, classifying with random "
                   "weights (smoke-test mode)")
-        self._binfer = inference.make_batched_infer(
-            self.cfg, compute_dtype=self.compute_dtype,
-            transform_resolution=args.resolution)
+        # --int8 calibrates lazily on the first slide with tiles; until
+        # then (and without --int8) the default extractor serves
+        self._transform_extract = None
+        self._int8_extractor = None
+        self._int8_pending = bool(args.int8)
+        self._binfer = None  # (extractor, batched fn) for --batch
 
         # per-name failure tracking (in memory): after MAX_ATTEMPTS a name
         # backs off for GIVEUP_BACKOFF_SECS instead of burning a rebuild
@@ -190,6 +200,31 @@ class SlideServer:
                 self._mark_processed(name)
 
     # ------------------------------------------------------------------
+    def _ensure_int8(self, builder):
+        """Arm the int8 extractor on ``builder``'s first ``--int8_calib``
+        tiles (a capped read off the memory-mapped cache), unless armed. A
+        tile-less slide defers it to the next slide: calibrating on the
+        zeros fallback would floor every activation scale."""
+        if not self._int8_pending:
+            return
+        from ..ops import quant
+
+        calib = quant.calib_tiles_from_builder(
+            builder, max(int(self.args.int8_calib), 1), self.args.resolution)
+        if calib is None:
+            print(f"serve: int8 calibration deferred: {builder.getname()} "
+                  "has no tiles")
+            return
+        cnn = self.model.cnn
+        qp_sc = quant.quantize_and_calibrate(cnn, calib)
+        self._transform_extract = quant.make_int8_transform_extract(
+            cnn, calib, self.args.resolution, qp_sc=qp_sc)
+        self._int8_extractor = quant.make_int8_extractor(cnn, calib,
+                                                         qp_sc=qp_sc)
+        self._int8_pending = False
+        print(f"serve: int8 W8A8 extractor armed ({int(calib.shape[0])} "
+              f"calibration tiles from {builder.getname()})")
+
     def _mark_processed(self, name: str):
         self.attempts.pop(name, None)
         self.processed.add(name)
@@ -224,9 +259,11 @@ class SlideServer:
                   file=sys.stderr)
             return False
         builder.update_resolution_and_buffer(self.args.resolution)
+        self._ensure_int8(builder)
         probs, outs, raster = inference.classify_slide_streaming(
             self.model, self.cfg, builder, resolution=self.args.resolution,
-            chunk=self.args.chunk, compute_dtype=self.compute_dtype)
+            chunk=self.args.chunk, compute_dtype=self.compute_dtype,
+            transform_extract=self._transform_extract)
         T = raster.shape[0]
         helpers.write_map(builder.getmeta(), 0, np.asarray(raster),
                           np.asarray(outs["Aterm"])[:, :T],
@@ -240,10 +277,25 @@ class SlideServer:
               f"({builder.getsize()} tiles, {secs:.2f}s)")
         return True
 
+    def _batched_infer(self):
+        """The batched forward of ``--batch``, rebuilt when the extractor
+        changes (``--int8`` arms after the first slide with tiles). The
+        eval transform runs on the card, so a group ships raw uint8."""
+        ex = self._int8_extractor
+        if self._binfer is None or self._binfer[0] is not ex:
+            self._binfer = (ex, inference.make_batched_infer(
+                self.cfg, compute_dtype=self.compute_dtype, extractor=ex,
+                transform_resolution=self.args.resolution))
+        return self._binfer[1]
+
     def process_group(self, builders) -> int:
         """--batch: several small slides through one extractor call, then
         one pool per slide; the same artifacts per slide as ``process``."""
         t0 = time.perf_counter()
+        if self._int8_pending:
+            armed_on = next((b for b in builders if b.getsize() > 0), None)
+            if armed_on is not None:
+                self._ensure_int8(armed_on)
         bags, rasters = [], []
         for b in builders:
             raw, coords = b._load_cache(with_coords=True, mmap=True)
@@ -255,7 +307,7 @@ class SlideServer:
             bags.append(raw)
             rasters.append(np.asarray(coords))
         probs, outs = inference.classify_slides_batched(
-            self.model, self.cfg, bags, infer_fn=self._binfer)
+            self.model, self.cfg, bags, infer_fn=self._batched_infer())
         secs = (time.perf_counter() - t0) / max(len(builders), 1)
         n_done = 0
         for i, b in enumerate(builders):
@@ -415,7 +467,9 @@ class SlideServer:
         the pool: the chunk every slide of at least that many tiles
         streams at. Slides run at their exact tile counts, so other sizes
         (tails, smaller slides, batched groups) are not known in advance
-        and pay cuDNN's first call at their shape."""
+        and pay cuDNN's first call at their shape. Under --int8 the chunk
+        skips the extractor, which exists only after calibration, and
+        goes through the pool as zero features."""
         tiles = self.args.prewarm
         if not tiles:
             return
@@ -424,14 +478,19 @@ class SlideServer:
             _build.load("gated_pool")
         roi = self.args.roi_size or ROI_SIZE
         n = min(self.args.chunk, tiles)
-        extract = inference.make_transform_extract(
-            self.cfg, resolution=self.args.resolution,
-            compute_dtype=self.compute_dtype)
         with torch.no_grad():
-            part = torch.zeros((n, roi, roi, 3), dtype=torch.uint8,
-                               device=self.device)
-            amil.attention_pool(self.model, extract(self.model.cnn, part),
-                                self.cfg)
+            if self.args.int8:
+                print("serve: prewarm skips the extractor under --int8 "
+                      "(it is built after calibration)", flush=True)
+                feats = torch.zeros((n, self.cfg.L), device=self.device)
+            else:
+                extract = inference.make_transform_extract(
+                    self.cfg, resolution=self.args.resolution,
+                    compute_dtype=self.compute_dtype)
+                part = torch.zeros((n, roi, roi, 3), dtype=torch.uint8,
+                                   device=self.device)
+                feats = extract(self.model.cnn, part)
+            amil.attention_pool(self.model, feats, self.cfg)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         print(f"serve: prewarm done (chunk={n}, "

@@ -6,11 +6,15 @@ of the reference's missing ``PyTorchHelpers`` module). Layer names are the
 JAX package's parameter paths (``cnn/stages/0/1/conv2/w``), so the
 ``*summary.json`` files of the two packages compare key for key.
 ``classification_report`` is the port's own copy of scikit-learn's
-``output_dict`` report, which the machines the port runs on need not
-have. The matplotlib plots (activations, kernels, layer and gradient
-flows) are not ported yet. Pure numpy over host arrays.
+``output_dict`` report and ``classification_report_text`` of its printed
+table, which the machines the port runs on need not have;
+``write_frame_csv`` writes the interface mode's tables in the layout of
+pandas' ``to_csv``, which they need not have either. The matplotlib plots
+(activations, kernels, layer and gradient flows) are not ported yet. Pure
+numpy over host arrays.
 """
 
+import csv
 import json
 import os
 
@@ -151,3 +155,46 @@ def classification_report(y_true, y_pred, *, labels, target_names):
         out["support"] = total
         report[avg] = out
     return report
+
+
+def classification_report_text(report: dict, target_names,
+                               digits: int = 2) -> str:
+    """The table scikit-learn's ``classification_report`` prints (without
+    ``output_dict``), from :func:`classification_report`'s dict."""
+    headers = ["precision", "recall", "f1-score", "support"]
+    width = max(max(len(n) for n in target_names), len("weighted avg"),
+                digits)
+    text = ("{:>{width}s} " + " {:>9}" * 4).format("", *headers,
+                                                   width=width) + "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    for name in target_names:
+        r = report[name]
+        text += row_fmt.format(name, r["precision"], r["recall"],
+                               r["f1-score"], int(r["support"]),
+                               width=width, digits=digits)
+    text += "\n"
+    total = int(report["macro avg"]["support"])
+    text += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}"
+             + " {:>9}\n").format("accuracy", "", "", report["accuracy"],
+                                  total, width=width, digits=digits)
+    for avg in ("macro avg", "weighted avg"):
+        r = report[avg]
+        text += row_fmt.format(avg, r["precision"], r["recall"],
+                               r["f1-score"], total, width=width,
+                               digits=digits)
+    return text
+
+
+def write_frame_csv(path: str, rows: dict):
+    """Write ``rows`` (key -> 1-D array of floats, all of one length) as
+    pandas' ``DataFrame.from_dict(rows, orient="index").to_csv(path)``
+    does: the header ``,0,1,...``, one line per key with the key first,
+    each float as its shortest ``repr`` (NaN as an empty field), ``\\n``
+    line ends and minimal quoting."""
+    width = max((len(v) for v in rows.values()), default=0)
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow([""] + [str(i) for i in range(width)])
+        for key, values in rows.items():
+            out.writerow([key] + ["" if np.isnan(v) else repr(float(v))
+                                  for v in np.asarray(values, np.float64)])

@@ -18,8 +18,10 @@ given ``value`` it maps any per-parameter tensor instead (gradients, Adam
 moments). ``adam_state_to_jax`` / ``load_adam_state`` carry a
 ``torch.optim.Adam``'s moments and step count to and from the layout of
 optax's ``ScaleByAdamState(count, mu, nu)``, so a resumed run keeps its
-moments across the two packages. The name rules are the port's own copy;
-nothing is imported from the JAX package.
+moments across the two packages. ``qparams_from_jax`` / ``scales_from_jax``
+carry the int8 serving path's quantized weights and activation scales
+(``ops/quant.py``). The name rules are the port's own copy; nothing is
+imported from the JAX package.
 """
 
 import numpy as np
@@ -157,6 +159,35 @@ def adam_state_to_jax(model: torch.nn.Module, optimizer):
     count = np.int32(max(steps) if steps else 0)
     return (count, jax_params_from_module(model, moment("exp_avg")),
             jax_params_from_module(model, moment("exp_avg_sq")))
+
+
+def qparams_from_jax(qparams) -> dict:
+    """The JAX package's int8 qparams (``ops/quant.quantize_resnet26``) ->
+    the port's (``ops/quant.py``): the same nested dict with CPU tensors,
+    conv ``wq`` HWIO -> OIHW, the fc's ``[in, out]`` kept."""
+    def site(p):
+        wq = np.asarray(p["wq"], np.int8)
+        if wq.ndim == 4:
+            wq = np.transpose(wq, (3, 2, 0, 1))
+        out = {"wq": torch.from_numpy(np.array(wq, np.int8, order="C")),
+               "sw": _t(p["sw"])}
+        if "b" in p:
+            out["b"] = _t(p["b"])
+        return out
+
+    return {"conv1": site(qparams["conv1"]),
+            "stages": [[{k: site(v) for k, v in block.items()}
+                        for block in stage] for stage in qparams["stages"]],
+            "fc": site(qparams["fc"])}
+
+
+def scales_from_jax(scales) -> dict:
+    """The JAX package's activation scales (``calibrate_resnet26``) -> the
+    port's: the same nested dict of float32 scalar tensors."""
+    return {"conv1": _t(scales["conv1"]),
+            "stages": [[{k: _t(v) for k, v in block.items()}
+                        for block in stage] for stage in scales["stages"]],
+            "fc": _t(scales["fc"])}
 
 
 def load_adam_state(model: torch.nn.Module, optimizer, count, mu, nu):

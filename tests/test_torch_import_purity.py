@@ -3,7 +3,8 @@
 An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
 the JAX package, and scikit-learn, pandas and matplotlib, which the
 machine with the card does not have; a fresh interpreter that imports the
-whole port must leave all of them out of ``sys.modules``, CUDA
+whole port must leave all of them out of ``sys.modules``, and tensorboard
+too (``utils/tb.py`` imports it only inside its guarded constructor), CUDA
 uninitialised, Triton unloaded and no kernel or native library built."""
 
 import ast
@@ -47,7 +48,8 @@ def test_port_has_modules_to_scan():
                  "train/checkpoint.py", "train/classify.py",
                  "utils/helpers.py", "parallel/steps.py",
                  "train/schedule.py", "data/dataset.py", "data/accessors.py",
-                 "utils/plots.py"):
+                 "utils/plots.py", "ops/quant.py", "utils/profiling.py",
+                 "utils/tb.py", "data/build_caches.py"):
         assert must in names
 
 
@@ -74,11 +76,13 @@ from {PORT}.data import native
 from {PORT}.train import classify, schedule, serve
 from {PORT}.parallel import steps
 from {PORT}.data import accessors, dataset
-from {PORT}.utils import plots
+from {PORT}.utils import plots, profiling, tb
+from {PORT}.ops import quant
+from {PORT}.data import build_caches
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules
-for name in {NOT_ON_THE_CARD!r}:
+for name in {NOT_ON_THE_CARD!r} + ("tensorboard",):
     assert name not in sys.modules, name
 assert not torch.cuda.is_initialized()
 assert "triton" not in sys.modules

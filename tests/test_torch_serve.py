@@ -6,8 +6,9 @@ stop, prewarm) on the port with ``device="cpu"``, and runs both daemons on
 one synthetic slide tree with one JAX-written checkpoint: in float32 at the
 tiny arch their ``results.csv`` probabilities and every ``.dla`` value
 agree within 1e-5 (the serving paths' f32 bound), with equal predictions
-and tile counts. Also the ``.dla`` writer and the classifier CLI's config
-against the JAX package's."""
+and tile counts; and so with ``--int8`` (both daemons calibrate on the
+first slide with tiles, deferring past a tile-less one). Also the ``.dla``
+writer and the classifier CLI's config against the JAX package's."""
 
 import io
 import os
@@ -262,8 +263,7 @@ def test_prewarm_runs_before_the_first_slide(slide_tree, tmp_path, capsys):
     assert "prewarm done (chunk=20," in text  # TILES < --chunk
 
 
-@pytest.mark.parametrize("flag,item", [(["--int8"], "A.11"),
-                                       (["--bundle", "b"], "A.9"),
+@pytest.mark.parametrize("flag,item", [(["--bundle", "b"], "A.9"),
                                        (["--mesh", "4"], "A.10")])
 def test_unported_options_refuse_to_start(slide_tree, tmp_path, flag, item):
     tree, _ = slide_tree
@@ -320,6 +320,113 @@ def test_port_daemon_matches_jax_daemon(slide_tree, tmp_path):
         b = np.loadtxt(os.path.join(out_t, f))
         np.testing.assert_array_equal(b[:, :2], a[:, :2])
         np.testing.assert_allclose(b[:, 2], a[:, 2], atol=1e-5, err_msg=f)
+
+
+def _int8_manifest(tree, tmp_path, with_empty):
+    """A manifest of the tree's slides, behind a tile-less slide when
+    ``with_empty`` (the oldest file, so the daemon takes it first)."""
+    names = sorted(os.listdir(tree / "slides"))
+    if with_empty:
+        empty = tree / "slides" / "AAA_empty_H&E.scn"
+        empty.write_bytes(b"fake")
+        os.utime(empty, (1, 1))
+        for kind, shape in (("data", (0, 32, 32, 3)), ("coor", (0, 2))):
+            np.save(tree / "cache"
+                    / f"{kind}_AAA_empty_H&E_rois_size32_hsvcut_v3.npy",
+                    np.zeros(shape, np.uint8 if kind == "data" else np.int64))
+        names = ["AAA_empty_H&E.scn"] + names
+    manifest = tmp_path / "int8.txt"
+    manifest.write_text("".join(str(tree / "slides" / n) + "\n"
+                                for n in names))
+    return manifest
+
+
+def test_port_daemon_int8_matches_jax_daemon_int8(slide_tree, tmp_path):
+    """Both daemons with ``--int8`` on one JAX-written checkpoint and one
+    manifest (a 40-tile slide streams in three chunks): both calibrate on
+    the first slide's 16 tiles and quantize the same weights bit for bit,
+    so their rows agree within 1e-5 with equal predictions, and every .dla
+    value within 1e-5."""
+    tree, add_slide = slide_tree
+    add_slide("GHP_7_C_H&E.scn", ntiles=40)
+    jp = jax.jit(jamil.init_attention_mil, static_argnums=1)(
+        jax.random.PRNGKey(21), jamil.MILConfig(widths=(8, 8, 8, 8),
+                                                blocks=(1, 1, 1, 1)))
+    ckpt = jckpt.save(str(tmp_path / "train_step-001.model"), jp)
+    common = ["--manifest", str(_int8_manifest(tree, tmp_path, False)),
+              "--ckpt", ckpt, "--int8", "--int8_calib", "16"] + COMMON
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jserve.main(common + ["--out_root", out_j]) == 0
+    assert _run(common + ["--out_root", out_t]) == 0
+    rj, rt = _parse(out_j), _parse(out_t)
+    assert rj.keys() == rt.keys() and len(rj) == 4
+    for name in rj:
+        np.testing.assert_allclose([float(p) for p in rt[name][1:4]],
+                                   [float(p) for p in rj[name][1:4]],
+                                   atol=1e-5, err_msg=name)
+        assert rt[name][4] == rj[name][4] and rt[name][6] == rj[name][6]
+    for f in (f for f in os.listdir(out_j) if f.endswith(".dla")):
+        np.testing.assert_allclose(np.loadtxt(os.path.join(out_t, f)),
+                                   np.loadtxt(os.path.join(out_j, f)),
+                                   atol=1e-5, err_msg=f)
+    # and it is the quantized path: the float daemon's rows differ
+    out_f = str(tmp_path / "f32")
+    assert _run([a for a in common if a != "--int8"]
+                + ["--out_root", out_f]) == 0
+    assert any(_probs(out_f)[n] != _probs(out_t)[n] for n in rt)
+
+
+def test_int8_calibration_deferred_past_an_empty_slide(slide_tree, tmp_path,
+                                                       capsys):
+    """A tile-less first slide must not calibrate the scales on the zeros
+    fallback (every scale would floor to 1e-8); calibration waits for the
+    next slide, and the rows equal a run whose manifest has no empty
+    slide (tests/test_serve.py:136)."""
+    tree, _ = slide_tree
+    out_a, out_b = str(tmp_path / "plain"), str(tmp_path / "empty_first")
+    argv = ["--int8", "--int8_calib", "16"] + COMMON
+    assert _run(["--manifest", str(_int8_manifest(tree, tmp_path, False)),
+                 "--out_root", out_a] + argv) == 0
+    capsys.readouterr()
+    assert _run(["--manifest", str(_int8_manifest(tree, tmp_path, True)),
+                 "--out_root", out_b] + argv) == 0
+    text = capsys.readouterr().out
+    assert "int8 calibration deferred: AAA_empty_H&E has no tiles" in text
+    assert "calibration tiles from GHP_1_A_H&E)" in text
+    a, b = _probs(out_a), _probs(out_b)
+    assert set(b) == set(a) | {"AAA_empty_H&E"}
+    for name in a:
+        assert b[name] == a[name], name
+        assert max(a[name]) < 0.999  # floored scales would saturate
+
+
+def test_int8_batched_matches_serial(slide_tree, tmp_path):
+    """``--batch`` groups run through the int8 extractor: the rows equal
+    the serial int8 run's within 1e-5 (calibrated on the same first
+    slide)."""
+    tree, _ = slide_tree
+    m = str(_int8_manifest(tree, tmp_path, False))
+    argv = ["--manifest", m, "--int8", "--int8_calib", "16"] + COMMON
+    out_s, out_b = str(tmp_path / "serial"), str(tmp_path / "batched")
+    assert _run(argv + ["--out_root", out_s]) == 0
+    assert _run(argv + ["--out_root", out_b, "--batch", "3"]) == 0
+    s, b = _probs(out_s), _probs(out_b)
+    assert s.keys() == b.keys() and len(s) == 3
+    for name in s:
+        np.testing.assert_allclose(b[name], s[name], atol=1e-5)
+
+
+def test_prewarm_skips_the_extractor_under_int8(slide_tree, tmp_path,
+                                                capsys):
+    tree, _ = slide_tree
+    out = str(tmp_path / "serve_out")
+    assert _run(["--watch_dir", str(tree / "slides"), "--out_root", out,
+                 "--prewarm", "64", "--int8", "--int8_calib", "16"]
+                + COMMON) == 0
+    text = capsys.readouterr().out
+    assert "prewarm skips the extractor under --int8" in text
+    assert text.index("prewarm done") < text.index("extractor armed")
+    assert len(_rows(out)) == 3
 
 
 def test_write_map_matches_jax(tmp_path):
