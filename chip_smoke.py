@@ -26,7 +26,12 @@ peak memory with and without ``--remat``, a traced window's idle share and
 the pool's backward kernel. Then the trainer's serving and
 instrumentation modes from the trained checkpoint: ``--interface`` on the
 training cohort in bf16 and f32 (its tables against direct calls, a timed
-and a traced run); W8A8 ``--int8`` (every conv site of the full-width
+and a traced run); the AOT tier (the checkpoint through the reference's
+pickle format and back, bit-identical; a bf16 and an f32 bundle exported
+through ``deploy.py``, loaded in a fresh process that builds no model,
+``chip_smoke.py --bundle-child``, with the model code poisoned and held to
+the live path; ``serve --bundle``; the pool's forward through its
+``torch.library`` op); W8A8 ``--int8`` (every conv site of the full-width
 int8 forward exact by each of its three lowerings against a float64
 convolution on the CPU, the slide-probability drift from bf16 and f32,
 the daemon with ``--int8`` behind a tile-less slide, ``--interface
@@ -70,6 +75,10 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch import (  # noqa: E402
+    _device,
+    deploy,
+)
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (  # noqa: E402
     build_caches,
     dataset,
@@ -102,6 +111,7 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (  # noqa: E402
     interop,
+    torch_interop,
 )
 
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
@@ -174,6 +184,8 @@ POOL_BWD_T = sorted({1, 200, 500, 2047, 2048, 2049, 4097, 50000}
 # timed: the largest training bag (the kernels line) and a 50k-tile bag
 POOL_BWD_TIMED_T = (500, 50000)
 KERNELS = ("gated_pool", "u8_stem")
+# the AOT bundles' tile bound: above the 5000-tile streaming slide
+BUNDLE_TILES = 8192
 
 
 def tensor_core_instructions(lib):
@@ -1708,6 +1720,313 @@ def build_caches_phase(slides, card):
         raise AssertionError(f"build_caches wrote {names}; differing {differ}")
 
 
+# ------------------------------------------------------------ AOT bundles
+def _poison_model_code():
+    """Make the port's model builders and module entry points raise: a
+    bundle must serve without them."""
+    def boom(*a, **k):
+        raise AssertionError("model code called on a bundle's path")
+
+    for obj, name in ((resnet, "init_resnet26"), (resnet, "apply_resnet26"),
+                      (resnet.ResNet26, "forward"),
+                      (amil, "init_attention_mil"),
+                      (amil.AttentionMIL, "__init__"),
+                      (amil, "attention_pool")):
+        setattr(obj, name, boom)
+
+
+def bundle_child(spec_path, out_path):
+    """``chip_smoke.py --bundle-child SPEC OUT``, the fresh process of
+    ``bundle_phase``, in which no model is ever built: with the model code
+    poisoned, for each bundle of the JSON ``SPEC`` (name -> {"dir",
+    "slides"}), in order, load it (timed; the first load pays the
+    process's cold imports) and classify each slide once (its pool
+    launches and pooled T recorded), then time the largest slide's
+    classification (median of 3) and the pool program at T = 2000 (CUDA
+    events). Writes the results to ``OUT`` as JSON."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _poison_model_code()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    torch.zeros(1, device=_device.resolve_device(None))
+    torch.cuda.synchronize()
+    result = {"cuda_init_s": time.perf_counter() - t0, "bundles": {}}
+    seen, real = [], gated_pool._launch
+
+    def launch(a_raw, *rest):
+        seen.append(int(a_raw.shape[0]))
+        return real(a_raw, *rest)
+
+    for name, job in spec.items():
+        t0 = time.perf_counter()
+        clf = deploy.DeployedClassifier(job["dir"])
+        load_s = time.perf_counter() - t0
+        slides, builders = {}, []
+        gated_pool._launch = launch
+        try:
+            for path in job["slides"]:
+                builder = roibuilder.RoiBuilder(
+                    path, {"roi_size": clf.manifest["roi_size"]})
+                gated_pool.LAUNCHES = 0
+                t0 = time.perf_counter()
+                probs, outs, coords = clf.classify_builder(builder)
+                torch.cuda.synchronize()
+                slides[builder.getname()] = {
+                    "T": builder.getsize(), "launches": gated_pool.LAUNCHES,
+                    "first_s": time.perf_counter() - t0,
+                    "probs": probs.tolist(), "Aterm": outs["Aterm"].tolist(),
+                    "coords": len(coords)}
+                builders.append(builder)
+        finally:
+            gated_pool._launch = real
+        big = max(builders, key=lambda b: b.getsize())
+        H = torch.randn((2000, clf.manifest["feature_dim"]),
+                        generator=torch.Generator().manual_seed(5)
+                        ).to(clf.device)
+        result["bundles"][name] = {
+            "load_s": load_s, "slides": slides,
+            "timed_tiles": big.getsize(),
+            "timed_s": timed(lambda: clf.classify_builder(big)),
+            "pool_program_T": 2000,
+            "pool_program_ms": time_cuda(lambda: clf.pool(H), 100)}
+    result["pooled_T"] = seen
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+class _FunctionOverCtypes(torch.autograd.Function):
+    """The forward path before the op (the autograd Function launching
+    through ctypes straight away), kept here only to time it beside the
+    op's."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return gated_pool._launch(*args)
+
+
+def time_pool_op(card, t=2000, rounds=2):
+    """The forward's cost a call at ``t`` tiles by CUDA events over 500
+    back-to-back calls, the mean of ``rounds`` interleaved rounds: the
+    checked wrapper through the autograd Function and the op (what every
+    path pays), the same wrapper launching through ctypes without the op
+    (the path before it), the ``torch.library`` op alone and ``_launch``
+    alone."""
+    args = pool_inputs(t, 3, 1, seed=7)
+
+    def before():
+        gated_pool._check(*args)
+        return _FunctionOverCtypes.apply(*args)
+
+    variants = {"wrapper_us": lambda: gated_pool.gated_attention_pool(*args),
+                "wrapper_without_op_us": before,
+                "custom_op_us": lambda: gated_pool.gated_pool_forward(*args),
+                "ctypes_launch_us": lambda: gated_pool._launch(*args)}
+    n = gated_pool.LAUNCHES
+    times = {k: [] for k in variants}
+    for r in range(rounds):
+        for k in (variants if r % 2 == 0 else reversed(variants)):
+            times[k].append(1e3 * time_cuda(variants[k], 500))
+    gated_pool.LAUNCHES = n  # timing launches are not the main path's
+    emit({"phase": "pool_op_time", "T": t, "K": 3, "O": 1, "rounds": rounds,
+          **{k: statistics.mean(v) for k, v in times.items()},
+          "all_us": times, **card})
+
+
+def bundle_phase(ckpt, one, big, hi, slides, card):
+    """The AOT tier from the trained checkpoint ``ckpt``. The checkpoint
+    goes to a reference-keyed pickle and back (``utils/torch_interop``),
+    bit-identical. Two full-width bundles are exported from the imported
+    ``.model`` through ``deploy.main``: bf16 at roi 300 (``--tiles``
+    8192) and f32 at roi 1200, so that the exported extractor runs the
+    anti-aliased resize. Both load in one fresh process that builds no
+    model, its model code poisoned (``bundle_child``), and each classifies
+    its slides (bf16: the 2000-
+    and 5000-tile slides; f32: the 1200 px one): one pool launch a slide,
+    every pooled T held to plain, probabilities and ``Aterm`` within 1e-5
+    of the live ``classify_slide_streaming`` of the same weights in the
+    same dtype (TF32 off), and within 1e-3 of the other dtype's. Then
+    ``serve --bundle --once`` over the daemon's manifest behind a
+    tile-less slide: one launch a served slide, rows within 1e-6 of direct
+    ``DeployedClassifier`` calls, the tile-less slide failed and not
+    recorded; a ``--prewarm`` run; the times. Returns the pool launches of
+    the bundle paths."""
+    root = os.path.join(CACHE, "bundle")
+    os.makedirs(root)
+    ref = os.path.join(root, "reference.pt")
+    imported = os.path.join(root, "imported.model")
+    n_keys = len(torch_interop.export_checkpoint(ckpt, ref))
+    torch_interop.import_checkpoint(ref, imported)
+    a, b = checkpoint.load_raw(ckpt), checkpoint.load_raw(imported)
+    params = sorted(k for k in a if k.startswith("classifier/"))
+    same = params == sorted(k for k in b if k.startswith("classifier/")) \
+        and all(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                and a[k].tobytes() == np.ascontiguousarray(b[k]).tobytes()
+                for k in params)
+    emit({"phase": "reference_checkpoint_roundtrip", "tensors": n_keys,
+          "bit_identical": same})
+    if not same or n_keys != len(params):
+        raise AssertionError("export_checkpoint then import_checkpoint "
+                             "changed the trained checkpoint")
+
+    exports = {}
+    for name, flags in (("bf16", ["--roi_size", "300"]),
+                        ("f32", ["--roi_size", "1200", "--f32"])):
+        out = os.path.join(root, name)
+        argv = ["export", "--ckpt", imported, "--out", out, "--resolution",
+                "300", "--chunk", "1024", "--tiles", str(BUNDLE_TILES),
+                *flags]
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            rc = deploy.main(argv)
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"deploy.main({argv}) returned {rc}")
+        with open(os.path.join(out, deploy.MANIFEST)) as f:
+            manifest = json.load(f)
+        manifest.pop("config")
+        exports[name] = {"dir": out, "export_s": wall, "manifest": manifest,
+                         "bytes": sum(os.path.getsize(os.path.join(out, f))
+                                      for f in os.listdir(out))}
+
+    served = {"bf16": (one, big), "f32": (hi,)}
+    spec, out = (os.path.join(root, f) for f in ("child.json", "child_out.json"))
+    with open(spec, "w") as f:
+        json.dump({nm: {"dir": exports[nm]["dir"],
+                        "slides": [bb.params["fullpath"] for bb in builders]}
+                   for nm, builders in served.items()}, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--bundle-child", spec,
+         out], cwd=ROOT, env=dict(os.environ, CACHE_DIR=CACHE),
+        stdout=sys.stderr, stderr=sys.stderr, timeout=600, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bundles' process exited {proc.returncode}")
+    with open(out) as f:
+        child = json.load(f)
+    children = child["bundles"]
+
+    cfg = amil.MILConfig()
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg)
+    checkpoint.restore_params(model, imported, strict=True)
+    n = gated_pool.LAUNCHES
+
+    def live(builder, dtype):
+        return inference.classify_slide_streaming(
+            model, cfg, builder, resolution=300, chunk=1024,
+            compute_dtype=dtype)[:2]
+
+    gaps = {"same_dtype_probs": 0.0, "same_dtype_Aterm": 0.0,
+            "other_dtype_probs": 0.0}
+    for name, builders in served.items():
+        dtype, other = ((torch.bfloat16, None) if name == "bf16"
+                        else (None, torch.bfloat16))
+        for builder in builders:
+            got = children[name]["slides"][builder.getname()]
+            probs, outs = live(builder, dtype)
+            gaps["same_dtype_probs"] = max(gaps["same_dtype_probs"], float(
+                np.abs(np.array(got["probs"]) - probs).max()))
+            gaps["same_dtype_Aterm"] = max(gaps["same_dtype_Aterm"], float(
+                np.abs(np.array(got["Aterm"]) - outs["Aterm"]).max()))
+            gaps["other_dtype_probs"] = max(gaps["other_dtype_probs"], float(
+                np.abs(np.array(got["probs"]) - live(builder, other)[0]).max()))
+    s_live = timed(lambda: live(big, torch.bfloat16))
+    gated_pool.LAUNCHES = n  # comparison launches are not the main path's
+    per_slide = {nm: s["launches"] for c in children.values()
+                 for nm, s in c["slides"].items()}
+    pooled = sorted(set(child["pooled_T"]))
+    unchecked = sorted(set(pooled) - set(MAIN_PATH_T))
+    emit({"phase": "bundle_checks", "launches_per_slide": per_slide,
+          "pooled_T": pooled, "unchecked_T": unchecked, **gaps,
+          "tol_same_dtype": 1e-5, "tol_other_dtype": 1e-3,
+          "manifests": {nm: e["manifest"] for nm, e in exports.items()}})
+    if any(v != 1 for v in per_slide.values()) or unchecked:
+        raise AssertionError("a bundle did not pool each slide with one "
+                             "kernel launch at a checked T")
+    if (gaps["same_dtype_probs"] > 1e-5 or gaps["same_dtype_Aterm"] > 1e-5
+            or gaps["other_dtype_probs"] > 1e-3):
+        raise AssertionError(f"the bundles disagree with the live path: "
+                             f"{gaps}")
+
+    # the daemon over the serving manifest behind a tile-less slide
+    empty = write_slide("bundle_empty", 98, (3, 3, 300, 9, 4))
+    mfile = os.path.join(root, "slides.txt")
+    with open(mfile, "w") as f:
+        f.write("".join(p + "\n" for p in [empty] + [p for _, p in slides]))
+    seen, real = set(), gated_pool._launch
+
+    def launch(a_raw, *rest):
+        seen.add(int(a_raw.shape[0]))
+        return real(a_raw, *rest)
+
+    def run_daemon(out, *extra):
+        argv = ["--manifest", mfile, "--out_root", os.path.join(root, out),
+                "--bundle", exports["bf16"]["dir"], "--settle_secs", "0",
+                "--once", *extra]
+        text, errs = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(errs):
+            t0 = time.perf_counter()
+            rc = serve.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(text.getvalue() + errs.getvalue())
+        return rc, read_rows(os.path.join(root, out)), text.getvalue(), \
+            errs.getvalue(), wall
+
+    gated_pool._launch = launch
+    gated_pool.LAUNCHES = 0
+    try:
+        rc, rows, _, errs, wall = run_daemon("serve")
+    finally:
+        gated_pool._launch = real
+    launches = gated_pool.LAUNCHES
+    clf = deploy.DeployedClassifier(exports["bf16"]["dir"])
+    gap, tiles = 0.0, 0
+    for _, path in slides:
+        builder = roibuilder.RoiBuilder(path, {"roi_size": 300})
+        tiles += builder.getsize()
+        probs, outs, _ = clf.classify_builder(builder)
+        row = rows[builder.getname()]
+        gap = max(gap, float(np.abs(row_probs(row) - probs).max()))
+        if (int(row["pred"]) != int(outs["y_pred_hat"])
+                or int(row["ntiles"]) != builder.getsize()):
+            raise AssertionError(f"bundle daemon row differs: {row}")
+    empty_failed = ("bundle_empty_H&E" not in rows
+                    and "AOT bundles serve tiled slides only" in errs)
+    rc_w, _, text_w, _, _ = run_daemon("serve_prewarm", "--prewarm", "1024")
+    prewarmed = "prewarm done (bundle" in text_w
+    gated_pool.LAUNCHES = launches
+    unchecked = sorted(seen - set(MAIN_PATH_T))
+    emit({"phase": "bundle_daemon", "rc": rc, "slides": len(rows),
+          "pool_launches": launches, "pooled_T": sorted(seen),
+          "unchecked_T": unchecked, "rows_vs_direct": gap, "tol": 1e-6,
+          "tile_less_failed": empty_failed, "prewarm_rc": rc_w,
+          "prewarm_ran": prewarmed, "wall_s": wall,
+          "tiles_per_s": tiles / wall, **card})
+    if (rc != 1 or len(rows) != len(slides) or launches != len(slides)
+            or unchecked or gap > 1e-6 or not empty_failed or rc_w != 1
+            or not prewarmed):
+        raise AssertionError("serve --bundle did not serve the manifest "
+                             "right")
+
+    bf16 = children["bf16"]
+    emit({"phase": "bundle_time", "compute_dtype": "bfloat16",
+          "export_s": {nm: e["export_s"] for nm, e in exports.items()},
+          "bundle_bytes": {nm: e["bytes"] for nm, e in exports.items()},
+          "load_s": {nm: c["load_s"] for nm, c in children.items()},
+          "child_cuda_init_s": child["cuda_init_s"],
+          "streaming_tiles": bf16["timed_tiles"],
+          "bundle_streaming_s": bf16["timed_s"],
+          "bundle_streaming_tiles_per_s": bf16["timed_tiles"] / bf16["timed_s"],
+          "live_streaming_s": s_live,
+          "live_streaming_tiles_per_s": big.getsize() / s_live,
+          "pool_program_T": bf16["pool_program_T"],
+          "pool_program_us": 1e3 * bf16["pool_program_ms"], **card})
+    time_pool_op(card)
+    return {"deploy_bundle": sum(per_slide.values()),
+            "serve_bundle": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -1869,6 +2188,9 @@ def main():
         iface, f32_table = interface_phase(flags, runs, ckpt, card)
         launches["interface_bf16"] = iface["bfloat16"]
         launches["interface_f32"] = iface["float32"]
+        # the AOT tier: reference-checkpoint interchange, bundles, the
+        # daemon's --bundle
+        launches.update(bundle_phase(ckpt, one, big, hi, slides, card))
         launches.update(int8_phase(model, cfg, one, slides, p_one, p32_one,
                                    flags, runs, ckpt, f32_table, card))
         launches["train_profile"], bwd_profile = profile_phase(flags, runs,
@@ -1915,4 +2237,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--bundle-child"]:
+        bundle_child(*sys.argv[2:])
+    else:
+        main()

@@ -20,6 +20,14 @@ are in. The mask gets no gradient. A cotangent that autograd does not
 materialise (an output that feeds no loss, such as the detached ``A1^T``
 and ``wROIs`` of the training path) reaches the backward as ``None``, and
 the kernel skips it instead of reading a tensor of zeros.
+
+The forward is the ``torch.library`` op ``OP`` (:func:`gated_pool_forward`:
+the kernel on CUDA, the plain version on the CPU, shapes alone under
+``torch.export``'s fake tensors), so an exported program (``deploy.py``)
+holds the pool as one node and runs the kernel when it is called. A
+program that holds the op loads only once this module has registered it.
+The autograd Function stays around the op: the op's own autograd would
+hand the backward zero tensors for unused outputs.
 """
 
 import ctypes
@@ -187,6 +195,34 @@ def _launch(a_raw, b, mask, weight_mask):
     return m, a1t, wrois
 
 
+# the op's namespace names the port; registered once, when this module is
+# first imported
+OP = "resnet26_attention_mil_torch::gated_pool_forward"
+
+
+@torch.library.custom_op(OP, mutates_args=(), device_types="cpu")
+def gated_pool_forward(a_raw: torch.Tensor, b: torch.Tensor,
+                       mask: torch.Tensor, weight_mask: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pool's forward as a ``torch.library`` op: ``(M [K, O], A1^T
+    [K, T], wROIs [K, T])``. On the CPU the plain version, made
+    contiguous as the kernel's outputs are."""
+    return tuple(x.contiguous() for x in gated_attention_pool_reference(
+        a_raw, b, mask, weight_mask))
+
+
+@gated_pool_forward.register_kernel("cuda")
+def _gated_pool_forward_cuda(a_raw, b, mask, weight_mask):
+    return _launch(a_raw, b, mask, weight_mask)
+
+
+@gated_pool_forward.register_fake
+def _gated_pool_forward_fake(a_raw, b, mask, weight_mask):
+    t, k = a_raw.shape
+    return (a_raw.new_empty((k, b.shape[1])), a_raw.new_empty((k, t)),
+            a_raw.new_empty((k, t)))
+
+
 def _launch_backward(a_raw, b, mask, weight_mask, a1t, dm, da1t, dwrois):
     global BWD_LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
@@ -239,11 +275,7 @@ class _GatedPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_raw, b, mask, weight_mask):
         ctx.set_materialize_grads(False)
-        if a_raw.device.type == "cuda":
-            m, a1t, wrois = _launch(a_raw, b, mask, weight_mask)
-        else:
-            m, a1t, wrois = gated_attention_pool_reference(
-                a_raw, b, mask, weight_mask)
+        m, a1t, wrois = gated_pool_forward(a_raw, b, mask, weight_mask)
         ctx.save_for_backward(a_raw, b, mask, weight_mask, a1t)
         return m, a1t, wrois
 

@@ -28,11 +28,17 @@ reshaped into a restartable service).
     quantizes the weights and calibrates the activation scales on the
     first slide that has tiles (a daemon has no cohort up front), then the
     streaming per-chunk program and the ``--batch`` group's extractor are
-    the quantized ones.
+    the quantized ones;
+  * ``--bundle DIR`` serves an AOT bundle (``deploy.py export``): the
+    programs and weights come from the bundle, no model is built in the
+    daemon, ``--ckpt`` is ignored, the resolution and roi size follow the
+    bundle's manifest, and ``--prewarm`` runs each bundle program once. A
+    tile-less slide fails (a bundle has no zero-bag program) and is
+    retried like any bad slide.
 
-``--bundle`` (ROADMAP A.9) and ``--mesh`` (A.10) are not ported yet and
-refuse to start. The device is an argument of :class:`SlideServer` and
-:func:`main` (the card by default), not a flag.
+``--mesh`` (ROADMAP A.10) is not ported yet and refuses to start. The
+device is an argument of :class:`SlideServer` and :func:`main` (the card
+by default), not a flag.
 
 Run::
 
@@ -64,8 +70,7 @@ from .classify import make_config
 SLIDE_EXTS = (".scn", ".svs", ".tif", ".tiff", ".npy")
 CSV_HEADER = ("name,prob_0,prob_1,prob_2,pred,Aterm_var,ntiles,secs\n")
 # the ROADMAP items that bring the options this port does not have yet
-NOT_PORTED = {"bundle": "A.9 (AOT deployment bundles)",
-              "mesh": "A.10 (multi-GPU)"}
+NOT_PORTED = {"mesh": "A.10 (multi-GPU)"}
 
 
 def build_argparser():
@@ -92,8 +97,12 @@ def build_argparser():
                         "activation scales calibrate on the first slide "
                         "with tiles")
     p.add_argument("--bundle", default=None,
-                   help="serve an AOT deployment bundle: not ported yet "
-                        "(ROADMAP A.9); refuses to start")
+                   help="serve an AOT deployment bundle (deploy.py "
+                        "export): programs and weights come from the "
+                        "bundle, no model is built and --ckpt is ignored; "
+                        "resolution/roi_size follow the bundle manifest. "
+                        "Mutually exclusive with --int8/--batch/--mesh "
+                        "(those recompose the live program)")
     p.add_argument("--int8_calib", default=256, type=int,
                    help="calibration tiles for the --int8 activation scales")
     p.add_argument("--chunk", default=1024, type=int,
@@ -141,6 +150,12 @@ class SlideServer:
     GIVEUP_BACKOFF_SECS = 300.0
 
     def __init__(self, args, *, device=None):
+        if args.bundle and (args.int8 or args.batch > 1 or args.mesh):
+            raise SystemExit(
+                "serve: --bundle serves the exported programs as-is; "
+                "--int8/--batch/--mesh recompose the live program and "
+                "cannot apply — re-export a bundle with the variant you "
+                "need")
         for flag, item in NOT_PORTED.items():
             if getattr(args, flag):
                 raise SystemExit(
@@ -157,17 +172,33 @@ class SlideServer:
         # finish the slide in flight, record it, exit 0
         self._stop_event = threading.Event()
 
-        self.model = amil.init_attention_mil(
-            torch.Generator().manual_seed(args.seed), self.cfg,
-            device=self.device)
-        if args.ckpt:
-            _, loaded, skipped = checkpoint.restore_params(self.model,
-                                                           args.ckpt)
-            print(f"serve: loaded {len(loaded)} tensors "
-                  f"({len(skipped)} skipped) from {args.ckpt}")
+        self.bundle = self.model = None
+        if args.bundle:
+            from .. import deploy
+
+            self.bundle = deploy.DeployedClassifier(args.bundle,
+                                                    device=self.device)
+            m = self.bundle.manifest
+            # the builders' tiling and resolution must be what the
+            # extractor program was traced for
+            args.resolution = int(m["resolution"])
+            args.roi_size = int(m["roi_size"])
+            print(f"serve: AOT bundle {args.bundle} "
+                  f"({len(m['programs'])} programs, res {m['resolution']}, "
+                  f"roi {m['roi_size']}, max_tiles {m['max_tiles']})"
+                  + ("; --ckpt ignored" if args.ckpt else ""))
         else:
-            print("serve: WARNING: no --ckpt, classifying with random "
-                  "weights (smoke-test mode)")
+            self.model = amil.init_attention_mil(
+                torch.Generator().manual_seed(args.seed), self.cfg,
+                device=self.device)
+            if args.ckpt:
+                _, loaded, skipped = checkpoint.restore_params(self.model,
+                                                               args.ckpt)
+                print(f"serve: loaded {len(loaded)} tensors "
+                      f"({len(skipped)} skipped) from {args.ckpt}")
+            else:
+                print("serve: WARNING: no --ckpt, classifying with random "
+                      "weights (smoke-test mode)")
         # --int8 calibrates lazily on the first slide with tiles; until
         # then (and without --int8) the default extractor serves
         self._transform_extract = None
@@ -259,11 +290,22 @@ class SlideServer:
                   file=sys.stderr)
             return False
         builder.update_resolution_and_buffer(self.args.resolution)
-        self._ensure_int8(builder)
-        probs, outs, raster = inference.classify_slide_streaming(
-            self.model, self.cfg, builder, resolution=self.args.resolution,
-            chunk=self.args.chunk, compute_dtype=self.compute_dtype,
-            transform_extract=self._transform_extract)
+        if self.bundle is not None:
+            # a bundle has no zero-bag program (that fallback needs the
+            # one-pass forward): fail, and the retry and backoff report it
+            # like any bad slide
+            if builder.getsize() == 0:
+                print(f"serve: {name}: tile-less slide — AOT bundles "
+                      "serve tiled slides only, skipped", file=sys.stderr)
+                return False
+            probs, outs, raster = self.bundle.classify_builder(builder)
+        else:
+            self._ensure_int8(builder)
+            probs, outs, raster = inference.classify_slide_streaming(
+                self.model, self.cfg, builder,
+                resolution=self.args.resolution, chunk=self.args.chunk,
+                compute_dtype=self.compute_dtype,
+                transform_extract=self._transform_extract)
         T = raster.shape[0]
         helpers.write_map(builder.getmeta(), 0, np.asarray(raster),
                           np.asarray(outs["Aterm"])[:, :T],
@@ -469,7 +511,8 @@ class SlideServer:
         (tails, smaller slides, batched groups) are not known in advance
         and pay cuDNN's first call at their shape. Under --int8 the chunk
         skips the extractor, which exists only after calibration, and
-        goes through the pool as zero features."""
+        goes through the pool as zero features. Under --bundle the chunk
+        (at most the bundle's) runs through the bundle's two programs."""
         tiles = self.args.prewarm
         if not tiles:
             return
@@ -477,6 +520,18 @@ class SlideServer:
         if self.device.type == "cuda":
             _build.load("gated_pool")
         roi = self.args.roi_size or ROI_SIZE
+        if self.bundle is not None:
+            # each bundle program once, on a zero chunk of min(the bundle's
+            # chunk, TILES) tiles
+            n = min(self.bundle.manifest["chunk"], tiles)
+            self.bundle.pool(self.bundle.extract(torch.zeros(
+                (n, roi, roi, 3), dtype=torch.uint8, device=self.device)))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            print(f"serve: prewarm done (bundle: extractor and pool "
+                  f"programs, chunk={n}, {time.perf_counter() - t0:.1f}s)",
+                  flush=True)
+            return
         n = min(self.args.chunk, tiles)
         with torch.no_grad():
             if self.args.int8:

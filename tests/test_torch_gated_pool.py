@@ -254,3 +254,83 @@ def test_pool_partition_covers_every_tile_once(t):
 def test_pool_partition_refuses_an_empty_bag():
     with pytest.raises(ValueError):
         gated_pool.pool_partition(0)
+
+
+@pytest.mark.parametrize("t,k,o", [(1, 3, 1), (64, 3, 1), (7, 5, 2)])
+def test_custom_op_passes_opcheck(t, k, o):
+    """The forward's ``torch.library`` op: its schema, its fake (shape)
+    implementation against the CPU one, and its use under AOT dispatch
+    with dynamic shapes; the CPU outputs are the plain version's, made
+    contiguous."""
+    args = [torch.from_numpy(x) for x in _inputs(t, k, o, seed=t)]
+    torch.library.opcheck(gated_pool.gated_pool_forward, tuple(args))
+    got = gated_pool.gated_pool_forward(*args)
+    want = gated_pool.gated_attention_pool_reference(*args)
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    namespace, name = gated_pool.OP.split("::")
+    assert getattr(getattr(torch.ops, namespace), name).default is not None
+
+
+@pytest.mark.parametrize("t", [1, 2, 33])
+def test_exported_attention_pool_holds_the_op(t):
+    """``torch.export`` of the head over a dynamic tile axis keeps the
+    pool as one node of the op, and the program gives the eager outputs at
+    other tile counts too (T = 1 included)."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.models import (
+        attention_mil as tamil,
+    )
+
+    cfg = tamil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1))
+    model = tamil.init_attention_mil(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+
+    class Head(torch.nn.Module):
+        def forward(self, h):
+            return tamil.attention_pool(model, h, cfg)
+
+    h = torch.randn(5, cfg.L, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        prog = torch.export.export(
+            Head(), (h,), dynamic_shapes=({0: torch.export.Dim(
+                "T", min=1, max=64)},))
+    namespace, name = gated_pool.OP.split("::")
+    targets = [str(n.target) for n in prog.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count(f"{namespace}.{name}.default") == 1
+    ht = torch.randn(t, cfg.L, generator=torch.Generator().manual_seed(t))
+    with torch.no_grad():
+        got = prog.module()(ht)
+        want = tamil.attention_pool(model, ht, cfg)
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+
+
+def test_training_backward_gets_absent_cotangents(monkeypatch):
+    """Through the training forward (the op inside the autograd Function),
+    the pool's backward still receives None for A1^T and wROIs, which only
+    feed detached outputs, so the kernel skips them."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.models import (
+        attention_mil as tamil,
+    )
+
+    seen = []
+    real = gated_pool.gated_attention_pool_backward
+
+    def spy(*args):
+        seen.append([c is None for c in args[5:]])
+        return real(*args)
+
+    monkeypatch.setattr(gated_pool, "gated_attention_pool_backward", spy)
+    cfg = tamil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1))
+    model = tamil.init_attention_mil(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    tiles = torch.rand((20, 16, 16, 3),
+                       generator=torch.Generator().manual_seed(2)) * 2 - 1
+    outs = tamil.apply_attention_mil(
+        model, tiles, 1, cfg, train=True,
+        generator=torch.Generator().manual_seed(3))
+    outs["loss"].backward()
+    assert seen == [[False, True, True]]
+    assert model.weight_mask.grad is not None

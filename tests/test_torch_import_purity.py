@@ -5,7 +5,8 @@ the JAX package, and scikit-learn, pandas and matplotlib, which the
 machine with the card does not have; a fresh interpreter that imports the
 whole port must leave all of them out of ``sys.modules``, and tensorboard
 too (``utils/tb.py`` imports it only inside its guarded constructor), CUDA
-uninitialised, Triton unloaded and no kernel or native library built."""
+uninitialised, Triton unloaded and no kernel or native library built
+(registering the pool's ``torch.library`` op builds nothing)."""
 
 import ast
 import os
@@ -49,7 +50,8 @@ def test_port_has_modules_to_scan():
                  "utils/helpers.py", "parallel/steps.py",
                  "train/schedule.py", "data/dataset.py", "data/accessors.py",
                  "utils/plots.py", "ops/quant.py", "utils/profiling.py",
-                 "utils/tb.py", "data/build_caches.py"):
+                 "utils/tb.py", "data/build_caches.py", "deploy.py",
+                 "utils/torch_interop.py"):
         assert must in names
 
 
@@ -79,6 +81,8 @@ from {PORT}.data import accessors, dataset
 from {PORT}.utils import plots, profiling, tb
 from {PORT}.ops import quant
 from {PORT}.data import build_caches
+from {PORT} import deploy
+from {PORT}.utils import torch_interop
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules

@@ -31,6 +31,12 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.train
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.utils import (
     helpers as jhelpers,
 )
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch import (
+    deploy,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data.roibuilder import (
+    RoiBuilder,
+)
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (
     gated_pool,
 )
@@ -263,13 +269,75 @@ def test_prewarm_runs_before_the_first_slide(slide_tree, tmp_path, capsys):
     assert "prewarm done (chunk=20," in text  # TILES < --chunk
 
 
-@pytest.mark.parametrize("flag,item", [(["--bundle", "b"], "A.9"),
-                                       (["--mesh", "4"], "A.10")])
+@pytest.mark.parametrize("flag,item", [(["--mesh", "4"], "A.10")])
 def test_unported_options_refuse_to_start(slide_tree, tmp_path, flag, item):
     tree, _ = slide_tree
     with pytest.raises(SystemExit, match=item):
         _run(["--watch_dir", str(tree / "slides"), "--out_root",
               str(tmp_path / "x")] + flag + COMMON)
+    assert not os.path.exists(tmp_path / "x")
+
+
+def _bundle(tmp_path):
+    """A float32 bundle of the tiny arch, exported by the port's CLI."""
+    out = str(tmp_path / "bundle")
+    assert deploy.main(["export", "--out", out, "--arch", "tiny", "--seed",
+                        "5", "--resolution", "16", "--roi_size", "32",
+                        "--chunk", "16", "--tiles", "64", "--f32"],
+                       device="cpu") == 0
+    return out
+
+
+def test_daemon_serves_a_bundle(slide_tree, tmp_path, capsys):
+    """``--bundle``: each row equals a direct ``DeployedClassifier`` call
+    (within the CSV's rounding), with its .dla maps; the resolution and roi
+    size follow the manifest whatever the flags say, ``--ckpt`` is
+    ignored, ``--prewarm`` runs both programs first, and a tile-less slide
+    fails (a bundle has no zero-bag program) and is not recorded."""
+    tree, add_slide = slide_tree
+    add_slide("GHP_7_C_H&E.scn", ntiles=40)  # three chunks of 16
+    out_b = _bundle(tmp_path)
+    manifest = _int8_manifest(tree, tmp_path, with_empty=True)
+    out = str(tmp_path / "serve_bundle")
+    argv = ["--manifest", str(manifest), "--out_root", out, "--bundle",
+            out_b, "--ckpt", "ignored.model", "--prewarm", "64"] + COMMON + [
+                "--resolution", "24", "--roi_size", "48"]
+    capsys.readouterr()
+    n = gated_pool.LAUNCHES
+    assert _run(argv) == 1  # the tile-less slide failed
+    assert gated_pool.LAUNCHES == n  # the CPU op takes the plain version
+    text = capsys.readouterr()
+    assert "--ckpt ignored" in text.out
+    assert "prewarm done (bundle" in text.out
+    assert text.out.index("prewarm done") < text.out.index("probs=")
+    assert "AOT bundles serve tiled slides only" in text.err
+    rows = _parse(out)
+    assert "AAA_empty_H&E" not in rows and len(rows) == 4
+    clf = deploy.DeployedClassifier(out_b, device="cpu")
+    for name, row in rows.items():
+        b = RoiBuilder(str(tree / "slides" / f"{name}.scn"),
+                       {"roi_size": 32}, device="cpu")
+        probs, outs, _ = clf.classify_builder(b)
+        np.testing.assert_allclose([float(p) for p in row[1:4]], probs,
+                                   atol=1e-6, err_msg=name)
+        assert int(row[4]) == int(outs["y_pred_hat"])
+        assert int(row[6]) == b.getsize()
+        attn = np.loadtxt(os.path.join(out,
+                                       f"prediction-AGMIL-ACTF1.{name}.dla"))
+        np.testing.assert_allclose(attn[:, 2], outs["Aterm"][0], atol=1e-5)
+    # a second --once retries only the tile-less slide, which fails again
+    assert _run(argv) == 1
+    assert len(_rows(out)) == 4
+
+
+@pytest.mark.parametrize("flag", [["--int8"], ["--batch", "2"],
+                                  ["--mesh", "2"]])
+def test_bundle_refuses_live_program_variants(slide_tree, tmp_path, flag):
+    tree, _ = slide_tree
+    with pytest.raises(SystemExit, match="recompose the live program"):
+        _run(["--watch_dir", str(tree / "slides"), "--out_root",
+              str(tmp_path / "x"), "--bundle", str(tmp_path / "b")]
+             + flag + COMMON)
     assert not os.path.exists(tmp_path / "x")
 
 
