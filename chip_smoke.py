@@ -36,8 +36,18 @@ int8 forward exact by each of its three lowerings against a float64
 convolution on the CPU, the slide-probability drift from bf16 and f32,
 the daemon with ``--int8`` behind a tile-less slide, ``--interface
 --int8``, and the int8 extractor against the bf16 one); ``--profile
---tensorboard`` for one epoch; and ``data/build_caches.py --workers 2``
-against the RoiBuilder's caches. A kernel's device time is per call,
+--tensorboard`` for one epoch; ``data/build_caches.py --workers 2``
+against the RoiBuilder's caches; and the (slides, tiles) mesh: the pool's
+split entries against the one-call kernel, a world of one over NCCL
+against the single-card path (and its streaming rate beside the live
+pass's), two ranks on the card over gloo against the world of one (at
+300 px against the one card's step with the ResNet on the same row
+halves), and ``classify --mesh 1`` / ``serve --mesh 1`` on a launched
+rank over NCCL (training, a ``--ckpt auto`` resume, ``--test_only``, the
+daemon serially, with ``--batch 4`` and with ``--int8``) against the same
+CLI runs on the card. ``chip_smoke.py --mesh-cards N``, on a machine with
+N cards, runs only the mesh's checks with one rank a card over NCCL,
+then the CLIs with ``--mesh N``. A kernel's device time is per call,
 summed over the CUDA launches of the call (the pool makes two above
 ``gated_pool.POOL_RANGE`` tiles); its launch counts are wrapper calls that
 reached the kernel. Progress (and the daemon's own
@@ -70,6 +80,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -98,11 +109,18 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     u8_stem,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
+    collectives,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
     nn as N,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (  # noqa: E402
     inference,
+    shard_pool,
     steps,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (  # noqa: E402
+    mesh as mesh_mod,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (  # noqa: E402
     checkpoint,
@@ -214,7 +232,7 @@ def card_line():
 
 
 # ---------------------------------------------------------------- phase 2
-def pool_inputs(t, k, o, seed, all_masked=False):
+def pool_inputs(t, k, o, seed, all_masked=False, device="cuda"):
     g = torch.Generator().manual_seed(seed)
     a_raw = torch.randn((t, k), generator=g)
     b = torch.randn((t, o), generator=g)
@@ -222,7 +240,7 @@ def pool_inputs(t, k, o, seed, all_masked=False):
     if all_masked:
         mask.zero_()
     wm = torch.randn((k,), generator=g)
-    return [x.cuda() for x in (a_raw, b, mask, wm)]
+    return [x.to(device) for x in (a_raw, b, mask, wm)]
 
 
 def check_pool_kernel():
@@ -704,10 +722,11 @@ def write_slide(name, seed, spec):
                            cols, roi, n_background, seed, n_pool)
 
 
-def built(name, seed):
-    rows, cols, roi, n_background, n_pool = SLIDES[name]
+def built(name, seed, spec=None):
+    spec = spec or SLIDES[name]
+    rows, cols, roi, n_background, n_pool = spec
     t0 = time.perf_counter()
-    path = write_slide(name, seed, SLIDES[name])
+    path = write_slide(name, seed, spec)
     builder = roibuilder.RoiBuilder(path, {"roi_size": roi})
     builder.build()
     want = rows * cols - n_background
@@ -2027,6 +2046,858 @@ def bundle_phase(ckpt, one, big, hi, slides, card):
             "serve_bundle": launches}
 
 
+# ------------------------------------------------------------ mesh phase
+# The (slides, tiles) mesh (parallel/mesh.py) on the one card: the pool's
+# split entries against the one-call kernel, a world of one over NCCL
+# against the single-card path, two ranks on cuda:0 over gloo against the
+# world of one. The split entries are checked at every T the paths pool
+# and at a 50k-tile bag; timed at the one-pass slide and the 50k bag.
+MESH_POOL_T = sorted(set(MAIN_PATH_T) | {POOL_REPEAT_T})
+MESH_TIMED_T = (2000, 50000)
+# the window of the mesh's training checks: two bags of the one-pass
+# slide's tiles (their 20 % subsamples are 120 and 80 tiles). The world of
+# one is held to one card at 300 px. Two ranks split each bag's tiles, so
+# the ResNet runs on each half on its own and cuDNN sees other batch
+# sizes: they are held to the world of one at 64 px, and at 300 px to the
+# one card's step with the ResNet called on the same halves and the pool
+# and statistics whole (split_extract_step), the gap to the whole-bag step
+# reported beside it
+MESH_BAGS = ((0, 600), (600, 1000))
+MESH_HELD_RES = 64
+MESH_POOL_H_T = 2000           # the sharded pool's bag (the one-pass slide)
+SPLIT_COUNTS = ("PARTIAL_LAUNCHES", "FINISH_LAUNCHES",
+                "BWD_PARTIAL_LAUNCHES", "BWD_FINISH_LAUNCHES")
+POOL_COUNTS = ("LAUNCHES", "BWD_LAUNCHES") + SPLIT_COUNTS
+
+
+def pool_counts():
+    torch.cuda.synchronize()
+    return {k: getattr(gated_pool, k) for k in POOL_COUNTS}
+
+
+def zero_pool_counts():
+    for k in POOL_COUNTS:
+        setattr(gated_pool, k, 0)
+
+
+def set_pool_counts(counts):
+    for k, v in counts.items():
+        setattr(gated_pool, k, v)
+
+
+def require_launched(path, counts, kernels):
+    """Fail unless each wrapper count of ``kernels`` is above 0."""
+    missing = [k for k in kernels if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{path}: {missing} never launched")
+
+
+def _halves(t):
+    return ([slice(0, t)] if t < 2
+            else [slice(0, t // 2), slice(t // 2, t)])
+
+
+def _rows_of(args, cut):
+    a, b, m, w = args
+    return [a[cut].contiguous(), b[cut].contiguous(), m[cut].contiguous(), w]
+
+
+def split_pool_case(t, seed, device="cuda"):
+    """The split entries at T = t against the one-call kernel and the plain
+    versions: one shard (partials, then finish) and two (the partials of
+    both halves summed in torch, then each half's finish), forward and,
+    with random cotangents of all three outputs, backward. Returns the
+    errors and whether one shard is the one-call kernel bit for bit."""
+    args = pool_inputs(t, 3, 1, seed, device=device)
+    one = gated_pool.gated_attention_pool(*args)
+    plain = gated_pool.gated_attention_pool_reference(*args)
+    single = gated_pool.pool_forward_finish(
+        *args, gated_pool.pool_forward_partials(*args))
+    shards = [_rows_of(args, c) for c in _halves(t)]
+    totals = sum(gated_pool.pool_forward_partials(*x) for x in shards)
+    fin = [gated_pool.pool_forward_finish(*x, totals) for x in shards]
+    two = (fin[0][0], torch.cat([f[1] for f in fin], 1),
+           torch.cat([f[2] for f in fin], 1))
+    g = torch.Generator().manual_seed(seed + 1)
+    cots = [torch.randn((3, 1), generator=g).to(device)] + [
+        torch.randn((3, t), generator=g).to(device) for _ in range(2)]
+    a1t = one[1]
+    bwd_one = gated_pool.gated_attention_pool_backward(*args, a1t, *cots)
+    bwd_plain = gated_pool.gated_attention_pool_backward_reference(
+        *args, a1t, *cots)
+    stats, db = gated_pool.pool_backward_partials(*args, a1t, *cots)
+    bwd_single = (*gated_pool.pool_backward_finish(*args, stats, *cots),)
+    bwd_single = (bwd_single[0], db, bwd_single[1])
+    parts = []
+    for c in _halves(t):
+        x = _rows_of(args, c)
+        cc = [cots[0], cots[1][:, c].contiguous(), cots[2][:, c].contiguous()]
+        parts.append((x, cc, gated_pool.pool_backward_partials(
+            *x, a1t[:, c].contiguous(), *cc)))
+    totals_b = sum(p[2][0] for p in parts)
+    fin_b = [gated_pool.pool_backward_finish(*x, totals_b, *cc)
+             for x, cc, _ in parts]
+    bwd_two = (torch.cat([f[0] for f in fin_b]),
+               torch.cat([p[2][1] for p in parts]), sum(f[1] for f in fin_b))
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+    def gap(got, want):
+        return [float((x - y).abs().max()) for x, y in zip(got, want)]
+
+    same = (all(torch.equal(x, y) for x, y in zip(single, one))
+            and all(torch.equal(x, y) for x, y in zip(bwd_single, bwd_one)))
+    refs = [float(w.abs().max()) for w in bwd_plain]
+    return {"T": t, "one_shard_bit_identical": same,
+            "fwd_err_two_vs_kernel": gap(two, one),
+            "fwd_err_two_vs_plain": gap(two, plain),
+            "bwd_err_two_vs_kernel": gap(bwd_two, bwd_one),
+            "bwd_err_two_vs_plain": gap(bwd_two, bwd_plain),
+            "bwd_max_abs_ref": refs}
+
+
+def check_split_pool(device="cuda"):
+    """The split entries at every T of MESH_POOL_T (split_pool_case): one
+    shard bit-identical to the one-call kernel; two shards within the
+    one-call tolerances of the kernel and of the plain versions (M 1e-5,
+    A1T and wROIs 1e-6; the backward 1e-5 x max|ref|). Returns the worst
+    error against the plain versions."""
+    saved = pool_counts()
+    worst = 0.0
+    for i, t in enumerate(MESH_POOL_T):
+        row = split_pool_case(t, 700 + i, device)
+        ok = row["one_shard_bit_identical"]
+        for key in ("fwd_err_two_vs_kernel", "fwd_err_two_vs_plain"):
+            e = row[key]
+            ok = ok and e[0] <= 1e-5 and e[1] <= 1e-6 and e[2] <= 1e-6
+        for key in ("bwd_err_two_vs_kernel", "bwd_err_two_vs_plain"):
+            ok = ok and all(e <= 1e-5 * r for e, r in
+                            zip(row[key], row["bwd_max_abs_ref"]))
+        emit({"phase": "mesh_split_pool", **row, "tol_M": 1e-5,
+              "tol_A1T_wROIs": 1e-6, "tol_bwd_rel": 1e-5, "ok": ok})
+        if not ok:
+            raise AssertionError(f"the split pool entries disagree at T={t}")
+        worst = max(worst, *row["fwd_err_two_vs_plain"],
+                    *row["bwd_err_two_vs_plain"])
+    set_pool_counts(saved)  # comparison launches are not the main path's
+    return worst
+
+
+def time_split_pool(card):
+    """At each T of MESH_TIMED_T, one shard of the split forward (partials,
+    then finish) and of the split backward (dM only): device time per call
+    (summed over its launches), CUDA-event time per call, the plain
+    versions' time, the bound (the one-call pool's bytes and operations)."""
+    saved = pool_counts()
+    rows = {"forward": {}, "backward": {}}
+    for t in MESH_TIMED_T:
+        args = pool_inputs(t, 3, 1, seed=9)
+        a1t = gated_pool.gated_attention_pool(*args)[1]
+        dm = torch.randn((3, 1), generator=torch.Generator().manual_seed(3)
+                         ).cuda()
+        cases = {
+            "forward": (
+                lambda: gated_pool.pool_forward_finish(
+                    *args, gated_pool.pool_forward_partials(*args)),
+                lambda: gated_pool.pool_forward_finish_reference(
+                    *args, gated_pool.pool_forward_partials_reference(*args)),
+                pool_bound_ms(t, 3, 1)),
+            "backward": (
+                lambda: gated_pool.pool_backward_finish(
+                    *args, gated_pool.pool_backward_partials(
+                        *args, a1t, dm)[0], dm),
+                lambda: gated_pool.pool_backward_finish_reference(
+                    *args, gated_pool.pool_backward_partials_reference(
+                        *args, a1t, dm)[0], dm),
+                pool_bwd_bound_ms(t, 3, 1))}
+        for way, (kernel, plain, (bound, bound_by)) in cases.items():
+            ms, how = device_ms(kernel, 200, match="gated_pool_")
+            wrapper_ms = time_cuda(kernel, 200)
+            plain_ms = time_cuda(plain, 100)
+            rows[way][t] = {"ms": ms, **ms_how(how),
+                            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": bound_by,
+                            "bound_share": bound / ms}
+            emit({"phase": "mesh_split_time", "entries": way, "T": t,
+                  "nblk": gated_pool.pool_partition(t)[0],
+                  "kernel_device_us": 1e3 * ms, **ms_how(how),
+                  "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
+                  "bound_us": 1e3 * bound, "bound_by": bound_by,
+                  "bound_share": bound / ms, "library_us": None, **card})
+    set_pool_counts(saved)  # timing launches are not the main path's
+    return rows
+
+
+def mesh_window(builder, device, resolution=300):
+    """The mesh checks' training window: the MESH_BAGS tiles of the
+    one-pass slide, eval-transformed on ``device`` at ``resolution``, with
+    masks of ones, labels (1, 2) and injected noise from numpy (a Gumbel
+    score a tile, the dropout keep mask of the subsample)."""
+    raw = np.load(builder.params["data_cache"], mmap_mode="r")
+    rng = np.random.default_rng(21)
+    tiles, masks, scores, keep = [], [], [], []
+    for lo, hi in MESH_BAGS:
+        t = hi - lo
+        tiles.append(transforms.eval_transform(
+            torch.from_numpy(raw[lo:hi].copy()).to(device),
+            resolution=resolution))
+        masks.append(torch.ones(t, device=device))
+        scores.append(torch.from_numpy(rng.gumbel(size=t).astype(np.float32)))
+        keep.append(torch.from_numpy(
+            rng.random((int(t * 0.2), amil.MILConfig().L)) < 0.75))
+    return tiles, masks, [1, 2], scores, keep
+
+
+def mesh_train_step(model, mesh, window):
+    """One window step (f32, lr 1e-3) from ``model``'s weights on a fresh
+    copy: returns the window's summed gradient (Adam's first moment over
+    0.1) and the parameters after the step, as host arrays by name, and
+    the metrics."""
+    work = amil.AttentionMIL(model.cfg, device=next(model.parameters()).device)
+    work.load_state_dict(model.state_dict())
+    opt = steps.make_optimizer(work)
+    tiles, masks, labels, scores, keep = window
+    metrics = steps.make_train_step(work.cfg, mesh=mesh)(
+        work, opt, tiles, masks, labels, 1e-3, scores=scores, keep=keep)
+    grads = {n: (opt.state[p]["exp_avg"] / 0.1).cpu().numpy()
+             for n, p in work.named_parameters()}
+    params = {n: p.detach().cpu().numpy() for n, p in work.named_parameters()}
+    return grads, params, {k: np.asarray(v).tolist()
+                           for k, v in metrics.items()}
+
+
+def split_extract_step(model, window, shares):
+    """The window step of :func:`mesh_train_step` on one card with no
+    group, the ResNet called on each of the ``shares`` row shares of every
+    bag's subsample that the tile ranks of a mesh extract (padded alike
+    with zero-mask rows), and the pool and its statistics over the whole
+    bag: what splitting the tile axis changes in the extractor, without
+    the mesh's collectives."""
+    cfg = model.cfg
+    device = next(model.parameters()).device
+    work = amil.AttentionMIL(cfg, device=device)
+    work.load_state_dict(model.state_dict())
+    opt = steps.make_optimizer(work)
+    tiles, masks, labels, scores, keep = window
+    for b in range(len(tiles)):
+        idx, sub = amil.subsample_index(masks[b].cpu(),
+                                        cfg.train_tile_fraction,
+                                        scores[b].cpu())
+        pad = -idx.shape[0] % shares
+        idx = torch.cat([idx, idx.new_zeros(pad)])
+        sub = torch.cat([sub, sub.new_zeros(pad)])
+        kp = torch.cat([keep[b], keep[b].new_ones((pad, cfg.L))])
+        step = idx.shape[0] // shares
+
+        def extract(cnn, x):
+            return torch.cat([resnet.apply_resnet26(
+                cnn, x[i * step:(i + 1) * step], stem=cfg.stem)
+                for i in range(shares)])
+
+        outs = amil._bag_forward(work, tiles[b][idx.to(device)], labels[b],
+                                 cfg, sub.to(device), kp, None, remat=False,
+                                 extractor=extract)
+        outs["loss"].backward()
+    steps.apply_updates(opt, 1e-3)
+    return ({n: (opt.state[p]["exp_avg"] / 0.1).cpu().numpy()
+             for n, p in work.named_parameters()},
+            {n: p.detach().cpu().numpy() for n, p in work.named_parameters()})
+
+
+def train_gap(got, want):
+    """The worst relative gap of two window steps: the gradient per
+    parameter over max(1, max|g|), and the parameters after the step over
+    max(1, max|p|) wherever the reference gradient is above 1e-6 (Adam's
+    step is lr g / (|g| + eps), whose sign is the rounding's where a
+    summed gradient is zero but for rounding)."""
+    g_gap = p_gap = 0.0
+    for name, g in want[0].items():
+        g_gap = max(g_gap, float(np.abs(got[0][name] - g).max())
+                    / max(1.0, float(np.abs(g).max())))
+        p = want[1][name]
+        determined = np.abs(g) > 1e-6
+        d = np.abs(got[1][name] - p)[determined]
+        p_gap = max(p_gap, float(d.max(initial=0.0))
+                    / max(1.0, float(np.abs(p).max())))
+    return g_gap, p_gap
+
+
+def mesh_sharded_pool(model, mesh, seed=31):
+    """The explicit sharded pool of a seeded [MESH_POOL_H_T, L] feature
+    matrix with a few masked rows, each rank feeding its share; the
+    outputs as host arrays."""
+    g = torch.Generator().manual_seed(seed)
+    H = torch.randn((MESH_POOL_H_T, model.cfg.L), generator=g)
+    mask = torch.ones(MESH_POOL_H_T)
+    mask[-7:] = 0.0
+    h, m = shard_pool.shard_features(mesh, H, mask)
+    out = shard_pool.make_sharded_pool(model.cfg, mesh)(model, h, m)
+    out["Aterm"] = out["Aterm"][:, :H.shape[0]]  # the pad to the tile axis
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def time_all_reduce(mesh, iters=200):
+    """Host time per call of one all-reduce of the pool's [K, 1+O] table
+    on the card over the tile group, synchronised."""
+    table = torch.ones((3, 2), device=mesh.device)
+    for _ in range(5):
+        collectives.all_reduce_(table, mesh.tiles_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        collectives.all_reduce_(table, mesh.tiles_group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _rank_checks(mesh, spec):
+    """One rank of a spawned mesh (two on cuda:0 over gloo, or one a card
+    over NCCL): the sharded pool, one training window (at MESH_HELD_RES
+    and at 300 px) and the 5000-tile slide streamed in f32 (TF32 off), from
+    the same seeded weights as the parent's model; returns the results as
+    host arrays, the launch counts of each path (keyed ``<label>_pool``,
+    ``_train``, ``_streaming``) and the all-reduce's time."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["CACHE_DIR"] = spec["cache"]
+    label = spec["label"]
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0),
+                                    amil.MILConfig(), device=mesh.device)
+    out, counts = {}, {}
+    zero_pool_counts()
+    out["pool"] = mesh_sharded_pool(model, mesh)
+    counts[f"{label}_pool"] = pool_counts()
+    one = roibuilder.RoiBuilder(spec["one"], {"roi_size": 300},
+                                device=mesh.device)
+    zero_pool_counts()
+    out["train"] = mesh_train_step(model, mesh, mesh_window(
+        one, mesh.device, MESH_HELD_RES))
+    counts[f"{label}_train"] = pool_counts()
+    out["train300"] = mesh_train_step(model, mesh, mesh_window(
+        one, mesh.device))
+    big = roibuilder.RoiBuilder(spec["big"], {"roi_size": 300},
+                                device=mesh.device)
+    zero_pool_counts()
+    probs, outs, _ = inference.classify_slide_streaming(
+        model, model.cfg, big, resolution=300, chunk=1024,
+        compute_dtype=None, mesh=mesh)
+    counts[f"{label}_streaming"] = pool_counts()
+    out["streaming"] = (probs, outs["Aterm"])
+    out["counts"] = counts
+    out["all_reduce_ms"] = time_all_reduce(mesh)
+    return out
+
+
+def world_one(model, one, big, store, shares, card):
+    """A world of one over NCCL on cuda:0, in this process: the window step
+    at 300 px against the single-card step, the streaming slide against
+    the live pass (held to 1e-6, emitted as ``mesh_world1_nccl``), and the
+    references of the spawned ranks (the f32 pool, window steps at
+    MESH_HELD_RES and 300 px, the f32 streaming slide, and the 300 px step
+    with the ResNet on the ``shares`` row shares of a tile axis of that
+    size, :func:`split_extract_step`, whose gap to the whole-bag step is
+    emitted as ``mesh_tile_split_witness``). Returns the references, the
+    world-of-one paths' launches and the all-reduce's time."""
+    cfg = model.cfg
+    launches = {}
+    mesh_mod.init(1, 0, backend="nccl",
+                  init_method="file://" + os.path.join(store, "one"))
+    try:
+        mesh = mesh_mod.make_mesh(1, devices=["cuda:0"])
+        window = mesh_window(one, "cuda")
+        single = mesh_train_step(model, None, window)
+        zero_pool_counts()
+        world1 = mesh_train_step(model, mesh, window)
+        launches["mesh_world1_train"] = pool_counts()
+        require_launched("mesh_world1_train", launches["mesh_world1_train"],
+                         SPLIT_COUNTS)
+        g_gap, p_gap = train_gap(world1, single)
+        probs_live, outs_live, _ = inference.classify_slide_streaming(
+            model, cfg, big, resolution=300, chunk=1024)
+        zero_pool_counts()
+        probs_w1, outs_w1, _ = inference.classify_slide_streaming(
+            model, cfg, big, resolution=300, chunk=1024, mesh=mesh)
+        launches["mesh_world1_streaming"] = pool_counts()
+        require_launched("mesh_world1_streaming",
+                         launches["mesh_world1_streaming"], ("LAUNCHES",))
+        d_stream = float(np.abs(probs_w1 - probs_live).max())
+        d_stream_a = float(np.abs(outs_w1["Aterm"] - outs_live["Aterm"]).max())
+        # the references of the spawned ranks: f32, TF32 off
+        refs = {"pool": mesh_sharded_pool(model, mesh), "train300": world1,
+                "train": mesh_train_step(model, mesh, mesh_window(
+                    one, "cuda", MESH_HELD_RES)),
+                "streaming": inference.classify_slide_streaming(
+                    model, cfg, big, resolution=300, chunk=1024,
+                    compute_dtype=None, mesh=mesh)}
+        ar_world1 = time_all_reduce(mesh)
+        # the serving rate in bf16, the live pass and the world of one's
+        # (its chunks' shares through the same pinned staging, one gather)
+        # in alternate rounds
+        rates = {"live": [], "world1": []}
+        for _ in range(2):
+            for key, m in (("live", None), ("world1", mesh)):
+                rates[key].append(big.getsize() / timed(
+                    lambda: inference.classify_slide_streaming(
+                        model, cfg, big, resolution=300, chunk=1024,
+                        mesh=m)))
+    finally:
+        dist.destroy_process_group()
+    refs["train300_split"] = split_extract_step(model, window, shares)
+    g_split, p_split = train_gap(refs["train300_split"], single)
+    emit({"phase": "mesh_tile_split_witness", "shares": shares,
+          "resolution": 300, "split_vs_whole_grad_gap_rel": g_split,
+          "split_vs_whole_param_gap_rel": p_split,
+          "how": "one card, no group: the ResNet on each share of the "
+                 "subsample, the pool and statistics whole"})
+    ok = (g_gap <= 1e-6 and p_gap <= 1e-6 and d_stream <= 1e-6
+          and d_stream_a <= 1e-6)
+    emit({"phase": "mesh_world1_nccl", "train_grad_gap_rel": g_gap,
+          "train_param_gap_rel": p_gap, "tol_train_rel": 1e-6,
+          "loss_single": single[2]["loss"], "loss_world1": world1[2]["loss"],
+          "streaming_probs_gap": d_stream, "streaming_Aterm_gap": d_stream_a,
+          "tol_streaming": 1e-6, "launches": launches,
+          "streaming_bf16_tiles_per_s": rates, "ok": ok, **card})
+    if not ok:
+        raise AssertionError("a world of one disagrees with the single-card "
+                             "path")
+    return refs, launches, ar_world1
+
+
+def spawned_ranks(label, n, devices, one, big, refs, store):
+    """``n`` spawned ranks on ``devices`` running :func:`_rank_checks`,
+    held to the world of one's ``refs`` to 1e-5 (emitted as ``label``):
+    the sharded pool, the window step at MESH_HELD_RES and, at 300 px, to
+    the split-extractor witness (the gap to the whole-bag step is
+    printed), the streaming slide; every rank's parameters after the step
+    bit-identical. Returns the ranks' results and rank 0's launches."""
+    t0 = time.perf_counter()
+    ranks = mesh_mod.launch(
+        _rank_checks, n,
+        args=({"cache": CACHE, "label": label,
+               "one": one.params["fullpath"],
+               "big": big.params["fullpath"]},),
+        devices=devices, init_method="file://" + os.path.join(store, label))
+    secs = time.perf_counter() - t0
+    got = ranks[0]
+    d_pool = max(float(np.abs(got["pool"][k] - refs["pool"][k]).max())
+                 for k in refs["pool"])
+    g, p = train_gap(got["train"], refs["train"])
+    g300, p300 = train_gap(got["train300"], refs["train300"])
+    g300s, p300s = train_gap(got["train300"], refs["train300_split"])
+    d = float(np.abs(got["streaming"][0] - refs["streaming"][0]).max())
+    d_a = float(np.abs(got["streaming"][1]
+                       - refs["streaming"][1]["Aterm"]).max())
+    same = all(np.array_equal(r["train"][1][k], got["train"][1][k])
+               for r in ranks[1:] for k in got["train"][1])
+    launches = got["counts"]
+    require_launched(f"{label}_pool", launches[f"{label}_pool"],
+                     SPLIT_COUNTS[:2])
+    require_launched(f"{label}_train", launches[f"{label}_train"],
+                     SPLIT_COUNTS)
+    require_launched(f"{label}_streaming", launches[f"{label}_streaming"],
+                     ("LAUNCHES",))
+    ok = (d_pool <= 1e-5 and g <= 1e-5 and p <= 1e-5 and d <= 1e-5
+          and d_a <= 1e-5 and g300s <= 1e-5 and p300s <= 1e-5 and same)
+    emit({"phase": label, "ranks": n, "devices": [str(x) for x in devices],
+          "pool_gap": d_pool, "train_res": MESH_HELD_RES,
+          "train_grad_gap_rel": g, "train_param_gap_rel": p,
+          "train_loss": [got["train"][2]["loss"], refs["train"][2]["loss"]],
+          "train300_vs_split_witness_grad_gap_rel": g300s,
+          "train300_vs_split_witness_param_gap_rel": p300s,
+          "train300_vs_whole_grad_gap_rel_reported": g300,
+          "train300_vs_whole_param_gap_rel_reported": p300,
+          "train300_loss": [got["train300"][2]["loss"],
+                            refs["train300"][2]["loss"]],
+          "streaming_probs_gap": d, "streaming_Aterm_gap": d_a,
+          "tol": 1e-5, "ranks_params_bit_identical": same, "seconds": secs,
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{label}: the ranks disagree with the world "
+                             "of one")
+    return ranks, launches
+
+
+def mesh_phase(one, big, card):
+    """The mesh phase (see MESH_POOL_T): the split entries, a world of one
+    over NCCL against the single-card path, two ranks on cuda:0 over gloo
+    against the world of one, their times, all from the seed-0 weights
+    that every rank makes alike. Returns the kernels line's additions: the
+    mesh paths' launch counts by path, the split entries' worst error and
+    their times."""
+    t_phase = time.perf_counter()
+    split_err = check_split_pool()
+    split_times = time_split_pool(card)
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0),
+                                    amil.MILConfig())
+    store = os.path.join(CACHE, "mesh_store")
+    os.makedirs(store, exist_ok=True)
+    refs, launches, ar_world1 = world_one(model, one, big, store, 2, card)
+    # two ranks on cuda:0; gloo, since they share the card
+    ranks, gloo_launches = spawned_ranks("mesh_gloo2", 2, ["cuda:0"] * 2,
+                                         one, big, refs, store)
+    launches.update(gloo_launches)
+    emit({"phase": "mesh_all_reduce_time", "table": [3, 2],
+          "world1_nccl_ms": ar_world1,
+          "world2_gloo_ms": ranks[0]["all_reduce_ms"],
+          "world2_gloo_ms_rank1": ranks[1]["all_reduce_ms"],
+          "how": "host clock around 200 synchronised calls",
+          "mesh_phase_seconds": time.perf_counter() - t_phase, **card})
+    return launches, split_err, split_times
+
+
+def mesh_cards(n):
+    """``chip_smoke.py --mesh-cards N``, on a machine with N cards: one
+    rank a card over NCCL (the axis rule's (slides, tiles) shape), the
+    mesh's checks held to a world of one on cuda:0 exactly as the two
+    ranks of the mesh phase are, with the all-reduce's time over the
+    cards; then ``classify --mesh N`` and ``serve --mesh N`` against the
+    same CLI runs on one card (:func:`mesh_cli`). Builds the pool kernel
+    and the slides those runs read, and nothing else."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        sys.exit(f"chip_smoke: --mesh-cards {n} needs {n} CUDA devices")
+    name, limit = [x.strip() for x in card_line().split(",", 1)]
+    card = {"card": name, "power_limit": limit}
+    print(f"{name}, {limit}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build("gated_pool")
+    os.makedirs(CACHE, exist_ok=True)
+    os.environ["CACHE_DIR"] = CACHE
+    try:
+        one, big = (built(nm, seed) for seed, nm in enumerate(SLIDES)
+                    if nm in ("onepass", "stream"))
+        slides = [("onepass", one.params["fullpath"]),
+                  ("stream", big.params["fullpath"])]
+        slides += [(nm, built(nm, 10 + i, spec).params["fullpath"])
+                   for i, (nm, spec) in enumerate(SMALL_SLIDES.items())]
+        model = amil.init_attention_mil(torch.Generator().manual_seed(0),
+                                        amil.MILConfig())
+        store = os.path.join(CACHE, "mesh_store")
+        os.makedirs(store, exist_ok=True)
+        refs, _, ar_world1 = world_one(model, one, big, store,
+                                       n // mesh_mod.slide_axis(n), card)
+        label = f"mesh_nccl{n}"
+        ranks, launches = spawned_ranks(label, n, mesh_mod.mesh_devices(n),
+                                        one, big, refs, store)
+        flags = train_cohort(os.path.join(CACHE, "train"))
+        mesh_cli(n, flags, cli_serve_inputs(model, slides), card)
+    finally:
+        shutil.rmtree(CACHE, ignore_errors=True)
+    emit({"phase": "mesh_cards_all_reduce_time", "table": [3, 2],
+          "mesh": {"slides": mesh_mod.slide_axis(n),
+                   "tiles": n // mesh_mod.slide_axis(n)},
+          "world1_nccl_ms": ar_world1,
+          "tile_group_nccl_ms": [r["all_reduce_ms"] for r in ranks],
+          "how": "host clock around 200 synchronised calls", **card})
+    print(f"{name}, {limit}", flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+# ------------------------------------------------ the CLIs with --mesh N
+# classify --mesh N and serve --mesh N on the card against the same CLI
+# runs on one card. A world of one runs the same tile batches as one card,
+# so it is held to 1e-5; more ranks split the ResNet's batches (see
+# MESH_BAGS), so their probabilities and window metrics are held to the
+# bf16 contract of 1e-3 and their checkpoints' and maps' gaps printed.
+CLIS = {"classify": classify, "serve": serve}
+CLI_DAEMON_ARGS = ["--roi_size", "300", "--resolution", "300", "--chunk",
+                   "1024", "--settle_secs", "0", "--once"]
+
+
+def cli_serve_inputs(model, slides):
+    """The daemon runs' inputs under ``.smoke_cache/mesh_cli``: ``model``
+    saved by the port's checkpoint writer, a manifest of the serving
+    ``slides`` and one with a tile-less slide first (``--int8`` defers
+    its calibration past it)."""
+    root = os.path.join(CACHE, "mesh_cli")
+    os.makedirs(root, exist_ok=True)
+    ckpt = checkpoint.save(checkpoint.checkpoint_path(root, 0), model)
+    empty = write_slide("empty", 99, (3, 3, 300, 9, 4))
+    os.utime(empty, (1, 1))
+    paths = {"all.txt": [p for _, p in slides],
+             "int8.txt": [empty] + [p for _, p in slides]}
+    for name, lines in paths.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("".join(p + "\n" for p in lines))
+    return ckpt, os.path.join(root, "all.txt"), os.path.join(root, "int8.txt")
+
+
+def cli_calls(root, train_flags, serve_inputs, extra=(), test_ckpt=None):
+    """The CLI runs under ``root``, each with ``extra`` (``--mesh N``), as
+    (label, CLI, argv): the trainer at full width in bf16 (epoch 0 with
+    its validation, epoch 1 resumed with ``--ckpt auto`` from the run's
+    epoch-0 checkpoint, ``--test_only`` from ``test_ckpt``, by default
+    the run's epoch 1; epoch 0 again in f32) and the daemon with
+    ``--once`` over the serving
+    manifest, one slide at a time, with ``--batch 4``, and with
+    ``--int8`` behind a tile-less slide."""
+    runs = os.path.join(root, "runs")
+    common = [*TRAIN_ARGS, *train_flags, "--output_root", runs, *extra]
+    ckpt, m_all, m_int8 = serve_inputs
+    daemon = ["--ckpt", ckpt, *CLI_DAEMON_ARGS, *extra]
+    test_ckpt = test_ckpt or checkpoint.checkpoint_path(
+        os.path.join(runs, "run_E"), 1)
+    return [
+        ("train", "classify", ["--tag", "E", "--epoch_start", "0",
+                               "--epoch_end", "0", *common]),
+        ("train_f32", "classify", ["--tag", "F", "--epoch_start", "0",
+                                   "--epoch_end", "0", "--f32", *common]),
+        ("train_resume", "classify", ["--tag", "E", "--ckpt", "auto",
+                                      "--epoch_start", "1", "--epoch_end",
+                                      "1", *common]),
+        ("test_only", "classify", ["--tag", "T", "--test_only", "--ckpt",
+                                   test_ckpt, "--epoch_start", "1",
+                                   *common]),
+        ("serve", "serve", ["--manifest", m_all, "--out_root",
+                            os.path.join(root, "serve"), *daemon]),
+        ("serve_batch4", "serve", ["--manifest", m_all, "--out_root",
+                                   os.path.join(root, "serve_batch4"),
+                                   "--batch", "4", *daemon]),
+        ("serve_int8", "serve", ["--manifest", m_int8, "--out_root",
+                                 os.path.join(root, "serve_int8"), "--int8",
+                                 *daemon])]
+
+
+def run_cli_calls(calls):
+    """Each call through its CLI's ``main`` on this process's card, its
+    prints on stderr; returns the pool's launch counts of each."""
+    counts = {}
+    for label, cli, argv in calls:
+        zero_pool_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = CLIS[cli].main(argv)
+        counts[label] = pool_counts()
+        if rc != 0:
+            raise AssertionError(f"{cli}.main({argv}) returned {rc}")
+    return counts
+
+
+def _cli_rank(mesh, calls, cache):
+    """One rank of the CLIs' ``--mesh N``: each call in turn through the
+    function that the CLI's ``main`` runs on every rank it launches for
+    ``--mesh N`` (``classify._mesh_rank``, ``serve._mesh_rank``), with
+    TF32 off as in this script, and a barrier after each (rank 0 writes
+    what the next call reads). Returns each call's exit code and this
+    rank's pool launch counts, zeroed before the call and read after."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["CACHE_DIR"] = cache
+    out = {}
+    for label, cli, argv in calls:
+        zero_pool_counts()
+        with (contextlib.redirect_stdout(sys.stderr) if mesh.rank == 0
+              else contextlib.nullcontext()):
+            rc = CLIS[cli]._mesh_rank(mesh, argv)
+        out[label] = (rc, pool_counts())
+        dist.barrier()
+    return out
+
+
+def moments_gap(ref_run, got_run, epochs):
+    """The trained checkpoints of two runs (``epochs``, one Adam step
+    each), compared as :func:`train_gap` compares window steps: each
+    step's gradient, recovered from Adam's first moment (``mu = 0.9 mu +
+    0.1 g``), over max(1, max|g|), and the parameters over max(1, max|p|)
+    wherever the reference's gradients of every step so far are above
+    1e-6; the elements left out are counted, with their largest gap."""
+    out = {}
+    prev = None
+    for epoch in epochs:
+        a, b = (checkpoint.load_raw(checkpoint.checkpoint_path(r, epoch))
+                for r in (ref_run, got_run))
+        grads = {}
+        g_gap = p_gap = free_gap = 0.0
+        free = 0
+        for key in (k for k in a if k.startswith("classifier/")):
+            path = key[len("classifier/"):]
+            mu_a, mu_b = (x[f"optimizer/mu/{path}"].astype(np.float64)
+                          for x in (a, b))
+            if prev is None:
+                g_a, g_b = mu_a / 0.1, mu_b / 0.1
+            else:
+                g_a = (mu_a - 0.9 * prev[0][path]) / 0.1
+                g_b = (mu_b - 0.9 * prev[1][path]) / 0.1
+            grads[path] = (mu_a, mu_b, g_a)
+            g_gap = max(g_gap, float(np.abs(g_b - g_a).max())
+                        / max(1.0, float(np.abs(g_a).max())))
+            determined = np.abs(g_a) > 1e-6
+            if prev is not None:
+                determined &= prev[2][path]
+            d = np.abs(b[key].astype(np.float64) - a[key])
+            scale = max(1.0, float(np.abs(a[key]).max()))
+            p_gap = max(p_gap, float(d[determined].max(initial=0.0)) / scale)
+            free += int((~determined).sum())
+            free_gap = max(free_gap,
+                           float(d[~determined].max(initial=0.0)) / scale)
+        prev = ({p: v[0] for p, v in grads.items()},
+                {p: v[1] for p, v in grads.items()},
+                {p: np.abs(v[2]) > 1e-6 for p, v in grads.items()})
+        out[f"epoch{epoch}"] = {"grad_gap_rel": g_gap, "param_gap_rel": p_gap,
+                                "undetermined_elements": free,
+                                "undetermined_param_gap_rel": free_gap,
+                                "steps": int(b["optimizer/count"])}
+    return out
+
+
+def dla_gap(dir_a, dir_b, kind):
+    """The largest difference between the ``.dla`` maps of ``kind``
+    (``ATTN``, the first map min-max normalised, or ``ACTF``, the raw
+    maps) of two daemon output directories, which must hold the same
+    files."""
+    def maps(d):
+        return sorted(f for f in os.listdir(d)
+                      if f.endswith(".dla") and f"-AGMIL-{kind}" in f)
+
+    names = maps(dir_a)
+    if not names or names != maps(dir_b):
+        raise AssertionError(f"{dir_a} and {dir_b} hold other .dla maps")
+    def table(path):
+        with open(path) as fh:
+            rows = [ln.split() for ln in fh.read().splitlines() if ln]
+        return np.asarray(rows, np.float64).reshape(len(rows), 3)
+
+    gap = 0.0
+    for f in names:
+        a, b = (table(os.path.join(d, f)) for d in (dir_a, dir_b))
+        if a.shape != b.shape:
+            raise AssertionError(f"{f}: {a.shape} against {b.shape}")
+        if a.size:
+            gap = max(gap, float(np.abs(a - b).max()))
+    return gap
+
+
+def mesh_cli(n, train_flags, serve_inputs, card):
+    """``classify --mesh n`` and ``serve --mesh n`` (:func:`cli_calls`) on
+    n launched ranks, one card each over NCCL, against the same runs on
+    this process's card: the checkpoints of epochs 0 and 1 (the resumed
+    one), the epoch-0 and ``--test_only`` summaries, and each daemon run's
+    rows and ``.dla`` maps; every path's pool launches on rank 0 (the
+    split entries in training and in ``--batch``'s groups, the one-call
+    pool where every rank's share is gathered first). Returns those
+    launches by path, ``mesh<n>_cli_<label>``."""
+    root = os.path.join(CACHE, "mesh_cli")
+    ref_root, got_root = (os.path.join(root, x) for x in ("one", f"mesh{n}"))
+    ref_counts = run_cli_calls(cli_calls(ref_root, train_flags,
+                                         serve_inputs))
+    calls = cli_calls(got_root, train_flags, serve_inputs,
+                      ("--mesh", str(n)), checkpoint.checkpoint_path(
+                          os.path.join(ref_root, "runs", "run_E"), 1))
+    t0 = time.perf_counter()
+    got = mesh_mod.launch(_cli_rank, n, args=(calls, CACHE),
+                          devices=mesh_mod.mesh_devices(n),
+                          init_method="file://" + os.path.join(
+                              root, f"store{n}"))[0]
+    secs = time.perf_counter() - t0
+    failed = {label: rc for label, (rc, _) in got.items() if rc != 0}
+    if failed:
+        raise AssertionError(f"--mesh {n}: exit codes {failed}")
+    tol = 1e-5 if n == 1 else 1e-3
+    ckpt = {tag: moments_gap(*(os.path.join(r, "runs", f"run_{tag}")
+                               for r in (ref_root, got_root)), epochs)
+            for tag, epochs in (("E", (0, 1)), ("F", (0,)))}
+
+    def summary_gap(run, epoch, prefixes):
+        """The worst gap of two runs' summary numbers, each over
+        max(1, |reference|) (the KLD terms are sums of squared features
+        in the tens), and its key."""
+        a, b = (read_summary(os.path.join(r, "runs", run), epoch)
+                for r in (ref_root, got_root))
+        return max((abs(float(b[k]) - float(a[k]))
+                    / max(1.0, abs(float(a[k]))), k) for k in a
+                   if k.startswith(prefixes)
+                   and isinstance(a[k], (int, float))
+                   and not k.endswith(("_secs", "_bags")))
+
+    # held: the window metrics (taken before the step), --test_only (one
+    # checkpoint for both) and, on one rank, the f32 epoch's validation;
+    # reported: the bf16 epoch's validation, after an Adam step that moves
+    # the elements whose gradient is rounding by +-lr either way
+    summaries = {"train_epoch0": summary_gap("run_E", 0, "train_"),
+                 "f32_epoch0": summary_gap("run_F", 0, ("train_",
+                                                        "valid_")),
+                 "test_only": summary_gap("run_T", 1, "valid_")}
+    valid_bf16 = summary_gap("run_E", 0, "valid_")
+    rows = {}
+    for label in ("serve", "serve_batch4", "serve_int8"):
+        ra, rb = (read_rows(os.path.join(r, label))
+                  for r in (ref_root, got_root))
+        if sorted(ra) != sorted(rb) or any(
+                (ra[k]["pred"], ra[k]["ntiles"])
+                != (rb[k]["pred"], rb[k]["ntiles"]) for k in ra):
+            raise AssertionError(f"--mesh {n} {label}: rows differ")
+        dirs = [os.path.join(r, label) for r in (ref_root, got_root)]
+        rows[label] = {"slides": len(rb), "probs_gap": max(
+            float(np.abs(row_probs(rb[k]) - row_probs(ra[k])).max())
+            for k in ra), "actf_gap": dla_gap(*dirs, "ACTF"),
+            "attn_gap": dla_gap(*dirs, "ATTN")}
+    launches = {f"mesh{n}_cli_{label}": counts
+                for label, (_, counts) in got.items()}
+    for label, kernels in (("train", SPLIT_COUNTS + ("LAUNCHES",)),
+                           ("train_f32", SPLIT_COUNTS + ("LAUNCHES",)),
+                           ("train_resume", SPLIT_COUNTS),
+                           ("test_only", ("LAUNCHES",)),
+                           ("serve", ("LAUNCHES",)),
+                           ("serve_batch4", ("LAUNCHES", "PARTIAL_LAUNCHES",
+                                             "FINISH_LAUNCHES")),
+                           ("serve_int8", ("LAUNCHES",))):
+        require_launched(f"mesh{n}_cli_{label}",
+                         launches[f"mesh{n}_cli_{label}"], kernels)
+    held = [rows[k]["probs_gap"] for k in rows] + [
+        summaries["train_epoch0"][0], summaries["test_only"][0]]
+    # more ranks hold the probabilities to the bf16 contract and print the
+    # step's gap (see MESH_BAGS) and the maps': min-max normalising a
+    # random model's near-uniform attention (ATTN) divides a bf16 change
+    # by the attention's small range
+    if n == 1:
+        held += [rows[k][g] for k in rows for g in ("actf_gap", "attn_gap")]
+        held += [summaries["f32_epoch0"][0]] + [
+            v for run in ckpt.values() for e in run.values()
+            for k, v in e.items() if k in ("grad_gap_rel", "param_gap_rel")]
+    ok = max(held) <= tol and all(e["steps"] == i + 1
+                                  for run in ckpt.values()
+                                  for i, e in enumerate(run.values()))
+    emit({"phase": f"mesh{n}_cli", "ranks": n,
+          "backend": mesh_mod.backend_for(mesh_mod.mesh_devices(n)),
+          "checkpoints": ckpt, "checkpoints_held": n == 1,
+          "summaries_gap": summaries,
+          "valid_bf16_epoch0_gap_reported": valid_bf16, "rows": rows,
+          "tol": tol,
+          "launches": launches, "single_card_launches": ref_counts,
+          "launch_and_runs_s": secs, "ok": ok, **card})
+    if not ok:
+        raise AssertionError(f"--mesh {n}: the CLIs disagree with one card")
+    return launches
+
+
+def split_row(way, mesh_launches, max_err, times):
+    """The kernels line's row of the split entries of the pool's forward or
+    backward: their launches on the mesh paths (each path's own count,
+    rank 0's for the two-rank paths) and their times at the first of
+    MESH_TIMED_T."""
+    key = "PARTIAL_LAUNCHES" if way == "forward" else "BWD_PARTIAL_LAUNCHES"
+    by_path = {path: c[key] for path, c in mesh_launches.items() if c[key]}
+    t = MESH_TIMED_T[0]
+    return {
+        "name": ("gated_attention_pool_split" if way == "forward"
+                 else "gated_attention_pool_backward_split"),
+        "route": "cuda", "source": f"{PORT}/csrc/gated_pool.cu",
+        "replaces": f"{JAX_PKG}/ops/pallas_pool.py:"
+                    + ("43" if way == "forward" else "118"),
+        "launches": sum(by_path.values()), "max_abs_err": max_err,
+        **{k: times[t][k] for k in ("ms", "ms_source", "ms_records",
+                                    "ms_calls", "plain_ms", "bound_ms",
+                                    "bound_by")},
+        "library_ms": None,
+        "shape": {"T": t, "K": 3, "O": 1, "shards": 1,
+                  "entries": ("partials + finish" if way == "forward"
+                              else "bwd partials + bwd finish, dM only")},
+        "ms_by_T": {tt: r["ms"] for tt, r in times.items()},
+        "bound_share_by_T": {tt: r["bound_share"] for tt, r in times.items()},
+        "launches_by_path": by_path}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -2196,6 +3067,13 @@ def main():
         launches["train_profile"], bwd_profile = profile_phase(flags, runs,
                                                                card)
         build_caches_phase(slides, card)
+        mesh_launches, split_err, split_times = mesh_phase(one, big, card)
+        mesh_launches.update(mesh_cli(1, flags, cli_serve_inputs(model,
+                                                                 slides),
+                                      card))
+        for path, counts in mesh_launches.items():
+            if counts["LAUNCHES"]:
+                launches[path] = counts["LAUNCHES"]
     finally:
         shutil.rmtree(CACHE, ignore_errors=True)
 
@@ -2230,7 +3108,9 @@ def main():
         "bound_share_by_T": {t: r["bound_share"]
                              for t, r in bwd_times.items()},
         "launches_by_path": {"train_classify": bwd_launches,
-                             "train_profile": bwd_profile}}]})
+                             "train_profile": bwd_profile}},
+        *[split_row(way, mesh_launches, split_err, split_times[way])
+          for way in ("forward", "backward")]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -2239,5 +3119,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bundle-child"]:
         bundle_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-cards"]:
+        mesh_cards(int(sys.argv[2]))
     else:
         main()

@@ -63,6 +63,18 @@
 // of the first launch write it for their ranges. No float atomics, so two
 // calls give bit-identical gradients.
 //
+// Split at the reduction (the multi-card mesh, ROADMAP B.1 (b)). When the
+// tile axis of a bag is split across ranks, the sums over T become sums
+// across ranks. The same kernels serve, cut where their passes meet:
+// gated_pool_forward_partials returns a shard's [K, 1+O] sums (pass 1, then
+// gated_pool_reduce_kernel over its ranges), the caller all-reduces them,
+// and gated_pool_forward_finish runs pass 2 from the totals.
+// gated_pool_backward_partials and gated_pool_backward_finish do the same
+// with the backward's [K, 2] table (denom and sum da1 * A1); the finish
+// leaves the shard's part of dw, which the parameter all-reduce sums. The
+// tables are K * (1+O) and K * 2 floats, so an all-reduce moves a few
+// dozen bytes.
+//
 // C interface (loaded with ctypes): each entry returns cudaGetLastError()
 // after its launches, 0 on success.
 
@@ -154,9 +166,9 @@ __device__ void write_range(const float* __restrict__ a_raw,
   }
 }
 
-// Pass 1 over range blockIdx.x of map blockIdx.y. With one range (gridDim.x
-// == 1) it also finishes: M[k], then A1T and wROIs. Otherwise it writes the
-// range's sums to scratch[k][j][0..O].
+// Pass 1 over range blockIdx.x of map blockIdx.y. With `finish` (the
+// one-call entry with one range) it also finishes: M[k], then A1T and wROIs.
+// Otherwise it writes the range's sums to scratch[k][j][0..O].
 __global__ void __launch_bounds__(kThreads)
 gated_pool_partial_kernel(const float* __restrict__ a_raw,
                           const float* __restrict__ b,
@@ -164,7 +176,7 @@ gated_pool_partial_kernel(const float* __restrict__ a_raw,
                           const float* __restrict__ w, float* __restrict__ m,
                           float* __restrict__ a1t, float* __restrict__ wrois,
                           float* __restrict__ scratch, int T, int K, int O,
-                          int range) {
+                          int range, int finish) {
   const int j = blockIdx.x;
   const int k = blockIdx.y;
   const int nblk = gridDim.x;
@@ -176,7 +188,7 @@ gated_pool_partial_kernel(const float* __restrict__ a_raw,
   for (int o0 = 0; o0 < O; o0 += MAX_O) {
     const int n_o = min(MAX_O, O - o0);
     range_sums(a_raw, b, mask, gate, t0, t1, K, k, O, o0, n_o, s);
-    if (nblk == 1) {
+    if (finish) {
       denom = fmaxf(s[0], 1e-12f);
       if ((int)threadIdx.x < n_o)
         m[(size_t)k * O + o0 + threadIdx.x] = s[threadIdx.x + 1] / denom;
@@ -186,7 +198,7 @@ gated_pool_partial_kernel(const float* __restrict__ a_raw,
       if ((int)threadIdx.x < n_o) dst[1 + o0 + threadIdx.x] = s[threadIdx.x + 1];
     }
   }
-  if (nblk == 1)
+  if (finish)
     write_range(a_raw, b, mask, gate, denom, t0, t1, T, K, k, O, a1t, wrois);
 }
 
@@ -211,7 +223,9 @@ __device__ float sum_partials(const float* __restrict__ scratch, int k,
 }
 
 // Pass 2 over range blockIdx.x of map blockIdx.y: the denominator from the
-// partials, M[k] (block 0), then A1T and wROIs for the range.
+// n_part rows of partials of map k (the nblk ranges' in the one-call entry,
+// one row of totals in the split one), M[k] (block 0), then A1T and wROIs
+// for the range.
 __global__ void __launch_bounds__(kThreads)
 gated_pool_finish_kernel(const float* __restrict__ a_raw,
                          const float* __restrict__ b,
@@ -219,20 +233,33 @@ gated_pool_finish_kernel(const float* __restrict__ a_raw,
                          const float* __restrict__ w, float* __restrict__ m,
                          float* __restrict__ a1t, float* __restrict__ wrois,
                          const float* __restrict__ scratch, int T, int K,
-                         int O, int range) {
+                         int O, int range, int n_part) {
   const int j = blockIdx.x;
   const int k = blockIdx.y;
-  const int nblk = gridDim.x;
-  const float denom = fmaxf(sum_partials(scratch, k, nblk, 1 + O, 0), 1e-12f);
+  const float denom =
+      fmaxf(sum_partials(scratch, k, n_part, 1 + O, 0), 1e-12f);
   if (j == 0) {
     for (int o = 0; o < O; ++o) {
-      const float s = sum_partials(scratch, k, nblk, 1 + O, 1 + o);
+      const float s = sum_partials(scratch, k, n_part, 1 + O, 1 + o);
       if (threadIdx.x == 0) m[(size_t)k * O + o] = s / denom;
     }
   }
   const int t0 = j * range;
   write_range(a_raw, b, mask, Gate(w[k]), denom, t0, min(T, t0 + range), T, K,
               k, O, a1t, wrois);
+}
+
+// One block per map: row k of `out` [K, width] is the sum over the nblk
+// ranges of map k's partials (scratch [K, nblk, width]), in sum_partials'
+// fixed order, the order in which the one-call entries sum them.
+__global__ void __launch_bounds__(kThreads)
+gated_pool_reduce_kernel(const float* __restrict__ scratch,
+                         float* __restrict__ out, int nblk, int width) {
+  const int k = blockIdx.x;
+  for (int c = 0; c < width; ++c) {
+    const float v = sum_partials(scratch, k, nblk, width, c);
+    if (threadIdx.x == 0) out[(size_t)k * width + c] = v;
+  }
 }
 
 // ------------------------------------------------------------- backward
@@ -358,10 +385,10 @@ __device__ void write_db(const float* __restrict__ a1t, const Cotangents& cot,
   }
 }
 
-// Launch 1 over range blockIdx.x of map blockIdx.y. With one range it
-// finishes the map: dA_raw and dw[k]. Otherwise it writes the range's
-// denom and sum da1 * A1 to scratch[k][j][0..1]. The blocks of map 0 write
-// dB for their range.
+// Launch 1 over range blockIdx.x of map blockIdx.y. With `finish` (the
+// one-call entry with one range) it finishes the map: dA_raw and dw[k].
+// Otherwise it writes the range's denom and sum da1 * A1 to
+// scratch[k][j][0..1]. The blocks of map 0 write dB for their range.
 __global__ void __launch_bounds__(kThreads)
 gated_pool_bwd_partial_kernel(const float* __restrict__ a_raw,
                               const float* __restrict__ b,
@@ -371,7 +398,7 @@ gated_pool_bwd_partial_kernel(const float* __restrict__ a_raw,
                               float* __restrict__ da_raw,
                               float* __restrict__ db, float* __restrict__ dw,
                               float* __restrict__ scratch, int T, int K, int O,
-                              int range) {
+                              int range, int finish) {
   const int j = blockIdx.x;
   const int k = blockIdx.y;
   const int nblk = gridDim.x;
@@ -380,7 +407,7 @@ gated_pool_bwd_partial_kernel(const float* __restrict__ a_raw,
   const Gate gate(w[k]);
   float s[2];
   range_stats(a_raw, b, mask, a1t, cot, gate, t0, t1, T, K, k, O, s);
-  if (nblk == 1) {
+  if (finish) {
     float p[2];
     range_grads(a_raw, b, mask, cot, gate, fmaxf(s[0], 1e-12f), s[1], t0, t1,
                 T, K, k, O, da_raw, p);
@@ -393,8 +420,10 @@ gated_pool_bwd_partial_kernel(const float* __restrict__ a_raw,
   if (k == 0) write_db(a1t, cot, t0, t1, T, K, O, db);
 }
 
-// Launch 2 (nblk > 1): denom and sum da1 * A1 from the partials, dA_raw for
-// the range, and the range's dw sums into dw_scratch[k][j][0..1].
+// Launch 2: denom and sum da1 * A1 from the n_part rows of partials of map k
+// (the nblk ranges' in the one-call entry, one row of totals in the split
+// one), dA_raw for the range, and the range's dw sums into
+// dw_scratch[k][j][0..1].
 __global__ void __launch_bounds__(kThreads)
 gated_pool_bwd_middle_kernel(const float* __restrict__ a_raw,
                              const float* __restrict__ b,
@@ -403,12 +432,12 @@ gated_pool_bwd_middle_kernel(const float* __restrict__ a_raw,
                              float* __restrict__ da_raw,
                              const float* __restrict__ scratch,
                              float* __restrict__ dw_scratch, int T, int K,
-                             int O, int range) {
+                             int O, int range, int n_part) {
   const int j = blockIdx.x;
   const int k = blockIdx.y;
   const int nblk = gridDim.x;
-  const float denom = fmaxf(sum_partials(scratch, k, nblk, 2, 0), 1e-12f);
-  const float s_da1_a1 = sum_partials(scratch, k, nblk, 2, 1);
+  const float denom = fmaxf(sum_partials(scratch, k, n_part, 2, 0), 1e-12f);
+  const float s_da1_a1 = sum_partials(scratch, k, n_part, 2, 1);
   const int t0 = j * range;
   float p[2];
   range_grads(a_raw, b, mask, cot, Gate(w[k]), denom, s_da1_a1, t0,
@@ -420,7 +449,7 @@ gated_pool_bwd_middle_kernel(const float* __restrict__ a_raw,
   }
 }
 
-// Launch 3 (nblk > 1), one block per map: dw[k] from the ranges' dw sums.
+// Launch 3, one block per map: dw[k] from the ranges' dw sums.
 __global__ void __launch_bounds__(kThreads)
 gated_pool_bwd_finish_kernel(const float* __restrict__ w,
                              const float* __restrict__ dw_scratch,
@@ -445,7 +474,7 @@ extern "C" int gated_pool_forward(const void* a_raw, const void* b,
       static_cast<const float*>(mask), static_cast<const float*>(w),
       static_cast<float*>(m), static_cast<float*>(a1t),
       static_cast<float*>(wrois), static_cast<float*>(scratch), T, K, O,
-      range);
+      range, nblk == 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
   gated_pool_finish_kernel<<<grid, kThreads, 0, s>>>(
@@ -453,7 +482,7 @@ extern "C" int gated_pool_forward(const void* a_raw, const void* b,
       static_cast<const float*>(mask), static_cast<const float*>(w),
       static_cast<float*>(m), static_cast<float*>(a1t),
       static_cast<float*>(wrois), static_cast<const float*>(scratch), T, K, O,
-      range);
+      range, nblk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,15 +509,114 @@ extern "C" int gated_pool_backward(const void* a_raw, const void* b,
   gated_pool_bwd_partial_kernel<<<grid, kThreads, 0, s>>>(
       a, bb, mk, ww, static_cast<const float*>(a1t), cot,
       static_cast<float*>(da_raw), static_cast<float*>(db),
-      static_cast<float*>(dw), stats, T, K, O, range);
+      static_cast<float*>(dw), stats, T, K, O, range, nblk == 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
   gated_pool_bwd_middle_kernel<<<grid, kThreads, 0, s>>>(
       a, bb, mk, ww, cot, static_cast<float*>(da_raw), stats, dw_stats, T, K,
-      O, range);
+      O, range, nblk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gated_pool_bwd_finish_kernel<<<K, kThreads, 0, s>>>(
       ww, dw_stats, static_cast<float*>(dw), nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- split at the reduction
+//
+// The entries below are the one-call entries cut where their passes meet:
+// at the sums over T. A bag whose tile axis is split across ranks
+// (parallel/mesh.py) calls the partials entry on its shard, all-reduces the
+// small table it returns across the ranks, and calls the finish entry with
+// the totals. The ranges of a shard are summed in sum_partials' fixed order
+// (gated_pool_reduce_kernel), as the one-call entries sum them, so a split
+// call on a single shard gives the one-call entry's outputs bit for bit.
+
+// partials [K, 1+O] = (sum_T gated, sum_T gated * B[:, o]) over this shard;
+// scratch: K * nblk * (1+O) floats when nblk > 1 (unused otherwise).
+extern "C" int gated_pool_forward_partials(const void* a_raw, const void* b,
+                                           const void* mask, const void* w,
+                                           void* partials, void* scratch,
+                                           int T, int K, int O, int range,
+                                           int nblk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(partials);
+  float* rows = nblk == 1 ? out : static_cast<float*>(scratch);
+  gated_pool_partial_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
+      static_cast<const float*>(a_raw), static_cast<const float*>(b),
+      static_cast<const float*>(mask), static_cast<const float*>(w), nullptr,
+      nullptr, nullptr, rows, T, K, O, range, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
+  gated_pool_reduce_kernel<<<K, kThreads, 0, s>>>(rows, out, nblk, 1 + O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// From the all-reduced totals [K, 1+O]: M [K, O], and this shard's A1T and
+// wROIs columns [K, T].
+extern "C" int gated_pool_forward_finish(const void* a_raw, const void* b,
+                                         const void* mask, const void* w,
+                                         const void* totals, void* m,
+                                         void* a1t, void* wrois, int T, int K,
+                                         int O, int range, int nblk,
+                                         void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gated_pool_finish_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
+      static_cast<const float*>(a_raw), static_cast<const float*>(b),
+      static_cast<const float*>(mask), static_cast<const float*>(w),
+      static_cast<float*>(m), static_cast<float*>(a1t),
+      static_cast<float*>(wrois), static_cast<const float*>(totals), T, K, O,
+      range, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stats [K, 2] = (sum_T gated, sum_T da1 * A1) over this shard, and this
+// shard's dB rows (no sum over T). scratch: 2 * K * nblk floats when
+// nblk > 1. dm is the cotangent of the replicated M, the same on every
+// rank; da1t and dwr are this shard's columns. Each may be null.
+extern "C" int gated_pool_backward_partials(
+    const void* a_raw, const void* b, const void* mask, const void* w,
+    const void* a1t, const void* dm, const void* da1t, const void* dwr,
+    void* db, void* stats, void* scratch, int T, int K, int O, int range,
+    int nblk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Cotangents cot{static_cast<const float*>(dm),
+                       static_cast<const float*>(da1t),
+                       static_cast<const float*>(dwr)};
+  float* out = static_cast<float*>(stats);
+  float* rows = nblk == 1 ? out : static_cast<float*>(scratch);
+  gated_pool_bwd_partial_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
+      static_cast<const float*>(a_raw), static_cast<const float*>(b),
+      static_cast<const float*>(mask), static_cast<const float*>(w),
+      static_cast<const float*>(a1t), cot, nullptr, static_cast<float*>(db),
+      nullptr, rows, T, K, O, range, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
+  gated_pool_reduce_kernel<<<K, kThreads, 0, s>>>(rows, out, nblk, 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// From the all-reduced stats [K, 2]: this shard's dA_raw rows and its part
+// of dw (linear in the shard's sums, so the ranks' parts add up to dw).
+// dw_scratch: 2 * K * nblk floats.
+extern "C" int gated_pool_backward_finish(
+    const void* a_raw, const void* b, const void* mask, const void* w,
+    const void* dm, const void* da1t, const void* dwr, const void* totals,
+    void* da_raw, void* dw, void* dw_scratch, int T, int K, int O, int range,
+    int nblk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Cotangents cot{static_cast<const float*>(dm),
+                       static_cast<const float*>(da1t),
+                       static_cast<const float*>(dwr)};
+  const float* ww = static_cast<const float*>(w);
+  float* dw_rows = static_cast<float*>(dw_scratch);
+  gated_pool_bwd_middle_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
+      static_cast<const float*>(a_raw), static_cast<const float*>(b),
+      static_cast<const float*>(mask), ww, cot, static_cast<float*>(da_raw),
+      static_cast<const float*>(totals), dw_rows, T, K, O, range, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gated_pool_bwd_finish_kernel<<<K, kThreads, 0, s>>>(
+      ww, dw_rows, static_cast<float*>(dw), nblk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -116,6 +116,9 @@ class GHPSingleBagDatasetSimple:
         self.output_dir = output_dir
         self.studyid = "gmb-id-nn"
         self.mode = "train"
+        # train bags as DeferredTrainBag (a mesh rank transforms only its
+        # share of each bag's subsample)
+        self.defer_train = False
         self._py_rng = pyrandom.Random(seed)
         self._np_rng = np.random.default_rng(seed)
 
@@ -141,9 +144,11 @@ class GHPSingleBagDatasetSimple:
             json.dump(d, f, indent=4, sort_keys=True)
         return path
 
-    def load_from_checkpoint(self, split_data_path: str):
+    def load_from_checkpoint(self, split_data_path: str, *,
+                             save: bool = True):
         """Restore a saved train/validation split
-        (reference: gbm/GlioblastomaDS.py:61-117)."""
+        (reference: gbm/GlioblastomaDS.py:61-117) and, with ``save``,
+        write it again to the output directory."""
         with open(split_data_path) as f:
             d = json.load(f)
         for file, out in zip(d["train_paths"], d["train_outcomes"]):
@@ -170,7 +175,8 @@ class GHPSingleBagDatasetSimple:
             self.test_slide_outcomes.append(np.asarray([out]))
             self.test_slide_path.append(file)
             self.test_slide_record.append(out)
-        self._save_split()
+        if save:
+            self._save_split()
 
     def GetClassWeights(self):
         """'balanced' class weights over the training labels, always
@@ -220,9 +226,12 @@ class GHPSingleBagDatasetSimple:
         self.all_slide_path.append(file)
         self.all_slide_record.append(outcome)
 
-    def load_new(self, n_folds: int = 6, n_fold_selection: int = 0):
+    def load_new(self, n_folds: int = 6, n_fold_selection: int = 0, *,
+                 save: bool = True):
         """Discover slides, label them, and make a randomized KFold split
-        (reference: gbm/GlioblastomaDS.py:123-238)."""
+        (reference: gbm/GlioblastomaDS.py:123-238). ``save`` writes the
+        split JSON (returning its path); a mesh rank other than 0 passes
+        False, since rank 0 writes it."""
         for file in sorted(glob.glob(
                 os.path.join(self.ROOT_DIR, self.PATH_IMG, self.scn_glob))):
             outcome = self._label_for_scn(file)
@@ -274,7 +283,7 @@ class GHPSingleBagDatasetSimple:
             self.test_slide_outcomes.append(self.all_slide_outcomes[idx])
             self.test_slide_path.append(self.all_slide_path[idx])
             self.test_slide_record.append(self.all_slide_record[idx])
-        return self._save_split()
+        return self._save_split() if save else None
 
     # ------------------------------------------------------------------
     def NewResolution(self, image_size: int):
@@ -322,7 +331,8 @@ class GHPSingleBagDatasetSimple:
     def __getitem__(self, idx):
         if self.mode == "train":
             b = self.train_slide_builders[idx]
-            return b.get_train_data(), b.params["outcome_tensor"]
+            return (b.get_train_data(deferred=self.defer_train),
+                    b.params["outcome_tensor"])
         if self.mode == "build":
             return self.all_builders[idx].build(), 0
         if self.mode == "eval":

@@ -13,6 +13,7 @@ its exact size and do not pad (``BagPrefetcher`` hands out a mask of
 ones). The ladder stays the JAX one.
 """
 
+import math
 import queue
 import threading
 import time
@@ -26,21 +27,33 @@ DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 2560)
 PREFETCH_DEPTH = 4
 
 
-def bucket_for(n: int, buckets=DEFAULT_BUCKETS) -> int:
-    """Smallest bucket >= n. Above the top bucket, sizes round up to a
-    1024-tile granule instead of the exact count, so bags of any size land
-    on few shapes; the waste is bounded at 1023 tiles."""
+def bucket_for(n: int, buckets=DEFAULT_BUCKETS, multiple_of: int = 1) -> int:
+    """Smallest bucket >= n that is a multiple of ``multiple_of`` (the tile
+    axis of a mesh, so that a bag splits evenly over its ranks): a ladder
+    bucket rounds up to the multiple (32 -> 36 on a tile axis of 6).
+    Above the top bucket, sizes round up to a ``lcm(1024, multiple_of)``
+    granule instead of the exact count, so bags of any size land on few
+    shapes; the waste is bounded at a granule less one tile."""
     for b in buckets:
         if b >= n:
+            if b % multiple_of:
+                b += multiple_of - b % multiple_of
             return b
-    return max(buckets[-1], ((n + 1023) // 1024) * 1024)
+    top = buckets[-1]
+    if top % multiple_of:
+        top += multiple_of - top % multiple_of
+    granule = math.lcm(1024, multiple_of)
+    return max(top, ((n + granule - 1) // granule) * granule)
 
 
-def pad_bag(tiles, n_tiles: int | None = None, *, buckets=DEFAULT_BUCKETS):
-    """Pad a [T, ...] tensor with zeros to its bucket; returns (padded,
-    mask [T_b] float32), both on the tiles' device."""
+def pad_bag(tiles, n_tiles: int | None = None, *, buckets=DEFAULT_BUCKETS,
+            multiple_of: int = 1):
+    """Pad a [T, ...] tensor with zeros to its bucket (a multiple of
+    ``multiple_of``) or to ``n_tiles``; returns (padded, mask [T_b]
+    float32), both on the tiles' device."""
     t = tiles.shape[0]
-    target = bucket_for(t, buckets) if n_tiles is None else n_tiles
+    target = (bucket_for(t, buckets, multiple_of) if n_tiles is None
+              else n_tiles)
     if target < t:
         raise ValueError(f"bag of {t} tiles cannot pad to n_tiles={target}")
     mask = torch.zeros(target, dtype=torch.float32, device=tiles.device)
@@ -217,35 +230,46 @@ def sample_data(dataset, *, image_size: int | None = None,
     return BagPrefetcher(dataset, shuffle=shuffle, **kwargs)
 
 
-def staged_chunks(raw, chunk: int, device):
+def staged_chunks(raw, chunk: int, device, *, rank: int = 0,
+                  ranks: int = 1):
     """Yield ``(start, uint8 chunk on device)`` over the host uint8 tile
     stack ``raw`` (an array or a memory map of the tile cache), in order.
 
-    On CUDA each chunk is copied into one of two reused pinned host
+    With ``ranks`` above 1, ``chunk`` (a multiple of ``ranks``) splits into
+    ``ranks`` equal shares and only share ``rank`` of each chunk is yielded,
+    ``start`` being its first row: rows ``[c + rank * s, c + (rank + 1) *
+    s)`` of the chunk at row ``c``, with ``s = chunk // ranks``, cut at the
+    end of the stack (a share past it is skipped).
+
+    On CUDA each share is copied into one of two reused pinned host
     buffers, so that its copy to the card is an asynchronous DMA that
-    overlaps the work on the previous chunk; a buffer is refilled only once
+    overlaps the work on the previous one; a buffer is refilled only once
     its last copy to the card has finished. A fresh host array per chunk
     would page-fault on every page it fills, which cost more than the copy
-    itself on the H100 host (PERF.md). On the CPU each chunk is its
+    itself on the H100 host (PERF.md). On the CPU each share is its
     own copy."""
     if raw.dtype != np.uint8:
         raise TypeError(f"expected a uint8 tile stack, got {raw.dtype}")
+    if chunk % ranks:
+        raise ValueError(f"a chunk of {chunk} tiles does not split over "
+                         f"{ranks} ranks")
+    share, T = chunk // ranks, raw.shape[0]
+    spans = [(lo, min(T, lo + share))
+             for lo in range(rank * share, T, chunk)]
     if device.type != "cuda":
-        for start in range(0, raw.shape[0], chunk):
-            yield start, torch.from_numpy(
-                np.array(raw[start:start + chunk])).to(device)
+        for lo, hi in spans:
+            yield lo, torch.from_numpy(np.array(raw[lo:hi])).to(device)
         return
-    shape = (min(chunk, raw.shape[0]),) + tuple(raw.shape[1:])
+    shape = (min(share, T),) + tuple(raw.shape[1:])
     bufs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
             for _ in range(2)]
     copied = [None, None]
-    for i, start in enumerate(range(0, raw.shape[0], chunk)):
-        k = i % 2
-        n = min(chunk, raw.shape[0] - start)
+    for i, (lo, hi) in enumerate(spans):
+        k, n = i % 2, hi - lo
         if copied[k] is not None:
             copied[k].synchronize()
-        np.copyto(bufs[k].numpy()[:n], raw[start:start + n])
+        np.copyto(bufs[k].numpy()[:n], raw[lo:hi])
         part = bufs[k][:n].to(device, non_blocking=True)
         copied[k] = torch.cuda.Event()
         copied[k].record(torch.cuda.current_stream(device))
-        yield start, part
+        yield lo, part

@@ -205,30 +205,39 @@ class RoiBuilder:
             pad = max(1, round(self.params["roi_size"] * 100 / 1200))
         return int(pad)
 
-    def get_train_data(self):
+    def get_train_data(self, *, deferred: bool = False):
         """Augmented bag [T <= 2500, res, res, 3] float32 in [-1, 1] on the
         builder's device (reference: RoiBuilder.py:215-238): a random
         2500 of the cached tiles when there are more (a sorted gather off
         the memory map, which reads only their pages), then pad, random
-        crop, random flips, resize and normalize on the device."""
+        crop, random flips, resize and normalize on the device.
+        ``deferred`` returns a :class:`DeferredTrainBag` instead, which
+        draws the same noise now and transforms only the rows it is asked
+        for (a mesh rank's share of the bag's subsample)."""
         self._require_ready()
         data = self._load_cache(mmap=True)
+        rows = None
         if data.shape[0] > TRAIN_TILE_CAP:
-            idx = self._rng.choice(data.shape[0], TRAIN_TILE_CAP,
-                                   replace=False)
-            data = np.asarray(data[np.sort(idx)])
-        if len(data) == 0:
+            rows = np.sort(self._rng.choice(data.shape[0], TRAIN_TILE_CAP,
+                                            replace=False))
+        n = data.shape[0] if rows is None else len(rows)
+        if n == 0:
             return self._empty_bag()
-        n, pad = len(data), self.train_pad()
+        pad = self.train_pad()
         offsets = torch.randint(0, 2 * pad + 1, (n, 2),
                                 generator=self._train_gen)
         flip_h = torch.rand(n, generator=self._train_gen) < 0.5
         flip_v = torch.rand(n, generator=self._train_gen) < 0.5
+        kwargs = dict(roi_size=self.params["roi_size"],
+                      resolution=self._resolution, pad=pad)
+        if deferred:
+            return DeferredTrainBag(data, rows, (offsets, flip_h, flip_v),
+                                    self.device, kwargs)
+        if rows is not None:
+            data = np.asarray(data[rows])
         return transforms.apply_chunked(
             transforms.train_transform, data, device=self.device,
-            per_tile=(offsets, flip_h, flip_v),
-            roi_size=self.params["roi_size"], resolution=self._resolution,
-            pad=pad)
+            per_tile=(offsets, flip_h, flip_v), **kwargs)
 
     # resolution-keyed eval-tile cache: the eval transform is deterministic,
     # so its f32 output is cached per (slide, roi_size, resolution), and the
@@ -307,6 +316,29 @@ class RoiBuilder:
             # slide must not sink an interface/heatmap sweep
             return self._empty_bag(), np.zeros((0, 2), np.int64), img_data
         return self._eval_tiles(img_data), coords, img_data
+
+
+class DeferredTrainBag:
+    """A training bag whose train transform has not run: ``bag[idx]`` is
+    ``get_train_data()[idx]`` for the same noise, computed for those rows
+    only (their tiles read off the memory-mapped cache, copied to the
+    device and transformed there; the transform is per tile). ``shape`` and
+    ``device`` are the bag's, so the loader hands it on like a tensor."""
+
+    def __init__(self, data, rows, noise, device, kwargs):
+        self._data, self._rows = data, rows
+        self._noise, self._kwargs = noise, kwargs
+        n = data.shape[0] if rows is None else len(rows)
+        res = kwargs["resolution"]
+        self.shape = (n, res, res, 3)
+        self.device = device
+
+    def __getitem__(self, idx):
+        idx = torch.as_tensor(idx).cpu()
+        take = idx.numpy() if self._rows is None else self._rows[idx.numpy()]
+        tiles = torch.from_numpy(np.asarray(self._data[take])).to(self.device)
+        return transforms.train_transform(tiles, *(x[idx] for x in self._noise),
+                                          **self._kwargs)
 
 
 def _save_atomic(path: str, arr: np.ndarray):

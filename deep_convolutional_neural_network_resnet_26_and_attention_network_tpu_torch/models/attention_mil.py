@@ -25,6 +25,15 @@ detached, as the JAX package's ``stop_gradient`` does. Its noise is either
 injected (``scores`` [T], ``keep`` [k, L] boolean), which the tests use to
 feed both packages the same noise, or drawn from a ``torch.Generator``.
 Eval runs without autograd.
+
+``group``, the tile-axis process group of a bag whose tile axis is split
+across ranks (``parallel/mesh.py``), makes every reduction over tiles a sum
+across the group: the batch-norm statistics, the pool (its split entries,
+``gated_pool.sharded_gated_attention_pool``), ``KLD``'s and ``Aterm_mu``'s
+masked means and ``Aterm_var``'s column norms and Gram matrix. The
+per-tile outputs (``Aterm``, ``wROIs``, ``Bterm``, ``Fterm``) are then this
+rank's rows; the rest is the whole bag's, on every rank of the group.
+``group=None`` is the single-card path.
 """
 
 from dataclasses import dataclass
@@ -35,6 +44,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops import gated_pool
+from ..ops.collectives import all_reduce_sum
 from ..ops import init as I
 from ..ops import loss as L
 from ..ops import nn as N
@@ -148,23 +158,37 @@ def _subsample(tiles, mask, fraction, scores):
     among mask>0 tiles (descending); the mask then zeroes every candidate
     beyond ``max(1, floor(T_valid * fraction))``, the reference's
     int(T_valid * fraction) (reference: gbm/model.py:192-194)."""
-    T = tiles.shape[0]
-    k_static = max(1, int(T * fraction))
+    idx, sub_mask = subsample_index(mask, fraction, scores)
+    return tiles[idx], sub_mask
+
+
+def subsample_index(mask, fraction, scores):
+    """:func:`_subsample`'s choice, on ``mask``'s device: the indices
+    ``[k_static]`` of the chosen tiles and their mask. The mesh trainer
+    takes it on the host, over the whole bag, before it splits the chosen
+    tiles across the tile axis (``parallel/steps.py``). Equal scores (a
+    few in a bag of thousands of float32 draws) go lower index first, the
+    rule of ``jax.lax.top_k``, on every device: ``torch.topk`` leaves
+    their order to the device's algorithm, and the order decides which
+    tile meets which row of the dropout mask."""
+    k_static = max(1, int(mask.shape[0] * fraction))
     s = torch.where(mask > 0, scores.to(mask.device, torch.float32),
                     torch.full_like(mask, float("-inf")))
-    _, idx = torch.topk(s, k_static)
+    idx = torch.sort(s, descending=True, stable=True).indices[:k_static]
     k_dyn = torch.clamp_min(torch.floor(mask.sum() * fraction), 1.0)
     keep = (torch.arange(k_static, device=mask.device) < k_dyn).to(mask.dtype)
-    return tiles[idx], mask[idx] * keep
+    return idx, mask[idx] * keep
 
 
-def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None):
+def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None,
+                   group=None):
     """Everything after the CNN: context, gated attention, pooling, logits.
     H: [T, L] float32 features; ``keep`` [T, L] boolean applies the train
     dropout to the instance-code branch. Runs with autograd when the caller
-    has it on. Returns a dict of intermediates."""
+    has it on. With ``group``, ``H`` is this rank's rows of a bag split
+    over the group's ranks. Returns a dict of intermediates."""
     Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
-                             model.context.bn.bias, mask=mask)
+                             model.context.bn.bias, mask=mask, group=group)
     Hm0 = N.leaky_relu(H)
     if keep is not None:
         Hm0 = N.dropout(Hm0, cfg.dropout, keep.to(Hm0.device), train=True)
@@ -176,17 +200,24 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None):
 
     m_vec = (mask if mask is not None
              else torch.ones(A_raw.shape[0], device=A_raw.device))
-    Mterm, A_1T, wROIs = gated_pool.gated_attention_pool(
-        A_raw.float().contiguous(), Bterm.float().contiguous(),
-        m_vec.float().contiguous(), wm.float().contiguous())
+    pool_args = (A_raw.float().contiguous(), Bterm.float().contiguous(),
+                 m_vec.float().contiguous(), wm.float().contiguous())
+    if group is None:
+        Mterm, A_1T, wROIs = gated_pool.gated_attention_pool(*pool_args)
+    else:
+        Mterm, A_1T, wROIs = gated_pool.sharded_gated_attention_pool(
+            *pool_args, group)
 
     # Decorrelation + mean diagnostics (reference: gbm/model.py:216-219)
     A_raw_m = A_raw * mask[:, None].to(A_raw.dtype) if mask is not None \
         else A_raw
-    A_2 = N.l2_normalize(A_raw_m, axis=0)                          # [T, K]
+    # with ``group`` the column norms, the Gram matrix and the mean are
+    # the whole bag's, each one all-reduce
+    A_2 = N.l2_normalize(A_raw_m, axis=0, group=group)            # [T, K]
     off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype, device=A_2.device)
-    Aterm_var = ((A_2.T @ A_2) * off_diag).mean()
-    Aterm_mu = 0.5 * (N.masked_mean(A_raw, mask, axis=0) ** 2).sum()
+    Aterm_var = (all_reduce_sum(A_2.T @ A_2, group) * off_diag).mean()
+    Aterm_mu = 0.5 * (N.masked_mean(A_raw, mask, axis=0, group=group)
+                      ** 2).sum()
 
     logits = Mterm.reshape(1, cfg.K * cfg.O)                       # [1, K]
     return {
@@ -198,7 +229,7 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None):
 def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
                         mask=None, train: bool = False, generator=None,
                         scores=None, keep=None, compute_dtype=None,
-                        extractor=None):
+                        extractor=None, group=None):
     """Bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask: optional
     [T] validity (1 = real tile). Returns the reference's 13-key dict.
     ``extractor``, a ``(cnn, tiles) -> [T, L]`` function, replaces the
@@ -209,7 +240,12 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
     given (``scores`` [T] Gumbel draws, ``keep`` [k, L] boolean for the
     ``k = max(1, int(T * cfg.train_tile_fraction))`` kept rows) or drawn
     from ``generator`` (scores first, then keep); autograd is on and only
-    ``loss`` carries a gradient. Eval runs under ``no_grad``."""
+    ``loss`` carries a gradient. Eval runs under ``no_grad``.
+
+    ``group`` (eval only) is the tile group of a bag split across ranks:
+    ``tiles`` and ``mask`` are then this rank's rows. A training bag is
+    split after its subsample, which runs over the whole bag
+    (``parallel/steps.py``)."""
     if mask is None:
         mask = torch.ones(tiles.shape[0], dtype=torch.float32,
                           device=tiles.device)
@@ -217,7 +253,10 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
         with torch.no_grad():
             return _bag_forward(model, tiles, label, cfg, mask, None,
                                 compute_dtype, remat=False,
-                                extractor=extractor)
+                                extractor=extractor, group=group)
+    if group is not None:
+        raise ValueError("a training bag is split across ranks after its "
+                         "subsample: use parallel.steps.make_train_step")
     T = tiles.shape[0]
     need = scores is None or (keep is None and cfg.dropout > 0.0)
     if need and generator is None:
@@ -234,7 +273,7 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
 
 
 def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
-                 remat, extractor=None):
+                 remat, extractor=None, group=None):
     # the CNN input carries no gradient, like the reference's .detach()
     # (reference: gbm/model.py:194)
     if extractor is not None:
@@ -243,9 +282,10 @@ def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
         H = resnet.apply_resnet26(model.cnn, tiles.detach(),
                                   compute_dtype=compute_dtype, stem=cfg.stem,
                                   remat=remat).float()            # [T, L]
-    KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
+    KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0,
+                              group=group)
 
-    pooled = attention_pool(model, H, cfg, mask=mask, keep=keep)
+    pooled = attention_pool(model, H, cfg, mask=mask, keep=keep, group=group)
     logits = pooled["logits"]
     y_pred = torch.softmax(logits, dim=1)
     y_pred_hat = torch.argmax(y_pred)

@@ -22,12 +22,19 @@ flip augmentation (``RoiBuilder.reseed_augment``), and the Gumbel scores
 and dropout masks (:meth:`Driver.bag_generator`). So a run resumed from
 epoch E-1's checkpoint replays epoch E of the uninterrupted run.
 
+``--mesh N`` trains over N cards, one rank each (``parallel/mesh.py``):
+every rank runs the same deterministic loader, and each accumulation
+window becomes one window step (``steps.make_train_step``) whose bags
+spread over the slide axis and whose tiles spread over the tile axis; a
+partial tail window pads with zero-weight copies. Validation and
+``--interface`` stream their oversized slides over every rank. Rank 0
+writes every file and prints; a resume loads on every rank.
+
 Not ported yet, each refusing to start with the ``ROADMAP.md`` item that
 brings it: ``--peak`` and ``--n_vis`` above 0 (the figures, slice (d);
-the default is 0 here, so ``--interface`` draws no heatmap panels) and
-``--mesh`` (A.10). The JAX trainer's figures (``plot_gbm_metrics``,
-``plot_prediction_summary``) wait with them; the data behind them is
-written.
+the default is 0 here, so ``--interface`` draws no heatmap panels). The
+JAX trainer's figures (``plot_gbm_metrics``, ``plot_prediction_summary``)
+wait with them; the data behind them is written.
 
 Run ``python -m deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train.classify --help``.
 """
@@ -46,6 +53,7 @@ from ..data import dataset as ds_mod
 from ..data.loader import epoch_loader_seed, prefetch_iter, sample_data
 from ..models import attention_mil as amil
 from ..parallel import inference, steps
+from ..parallel import mesh as M
 from ..utils import helpers, plots, profiling
 from . import DIVERGED_EXIT, PreemptionLatch, checkpoint, schedule
 
@@ -53,8 +61,7 @@ TARGET_NAMES = ["A", "B", "C"]
 # the ROADMAP items that bring the options this port does not have yet
 NOT_PORTED = {"peak": "slice (d) (the figures: weight and activation "
                       "inspection)",
-              "n_vis": "slice (d) (the figures: heatmap panels)",
-              "mesh": "A.10 (multi-GPU)"}
+              "n_vis": "slice (d) (the figures: heatmap panels)"}
 
 
 def build_argparser():
@@ -124,8 +131,10 @@ def build_argparser():
                         "a Chrome trace, and add per-step wall-time "
                         "percentiles to each epoch's stats")
     p.add_argument("--mesh", default=0, type=int,
-                   help="train over N cards (not ported yet, ROADMAP "
-                        "A.10; refuses to start)")
+                   help="train over an N-card (slides, tiles) mesh, one "
+                        "rank a card: each accumulation window of bags "
+                        "becomes one window step, its bags over the slide "
+                        "axis and each bag's tiles over the tile axis")
     p.add_argument("--train_pad", default=None, type=int,
                    help="zero-pad margin for the train random-crop jitter "
                         "(default: the reference's 100 px at roi 1200, "
@@ -167,14 +176,18 @@ def _seed_generator(*entropy: int) -> torch.Generator:
 
 class Driver:
     """The model, its optimizer, the step functions and the output paths,
-    on ``device`` (the card unless ``"cpu"``)."""
+    on ``device`` (the card unless ``"cpu"``). With ``mesh`` this is one
+    rank of a mesh (``parallel/mesh.py``): it trains through the window
+    step, and only rank 0 writes files (``self.writes``)."""
 
     def __init__(self, args, cfg: amil.MILConfig, output_dir: str, *,
-                 device=None):
+                 device=None, mesh=None):
         self.args = args
         self.cfg = cfg
         self.output_dir = output_dir
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.compute_dtype = None if args.f32 else torch.bfloat16
         self.diverged = False  # set by the non-finite-loss guard
         self.stream_tiles = int(args.stream_tiles)
@@ -196,6 +209,16 @@ class Driver:
         # the streaming per-chunk program; None is the default extractor,
         # enable_int8 swaps in the int8 one
         self.transform_extract = None
+        if mesh is not None:
+            self.window_step = steps.make_train_step(
+                cfg, mesh=mesh, compute_dtype=self.compute_dtype)
+            print(f"Mesh training over {mesh.shape}")
+
+    def replicate(self):
+        """On a mesh: every rank takes rank 0's parameters and Adam
+        state."""
+        if self.mesh is not None:
+            steps.replicate_state(self.mesh, self.model, self.optimizer)
 
     def enable_int8(self, builders):
         """Swap the eval and streaming extractors for the W8A8 int8
@@ -210,7 +233,7 @@ class Driver:
 
         want = max(int(self.args.int8_calib), 1)
         chunks, n = [], 0
-        for b in builders:
+        for b in builders if self.writes else ():
             tiles = quant.calib_tiles_from_builder(b, want - n,
                                                    self.args.resolution)
             if tiles is None:
@@ -219,17 +242,22 @@ class Driver:
             n += tiles.shape[0]
             if n >= want:
                 break
+        qp_sc = None
+        if n:
+            qp_sc = quant.quantize_and_calibrate(self.model.cnn,
+                                                 torch.cat(chunks, dim=0))
+        if self.mesh is not None:
+            # rank 0 calibrates, every rank serves its scales
+            qp_sc, n = M.broadcast_object((qp_sc, n), self.mesh)
         if n == 0:
             raise RuntimeError("--int8: no slides with tiles available "
                                "to calibrate on")
-        calib = torch.cat(chunks, dim=0)
-        qp_sc = quant.quantize_and_calibrate(self.model.cnn, calib)
         self.fwd_eval = steps.make_bag_forward(
             self.cfg, train=False, compute_dtype=self.compute_dtype,
-            extractor=quant.make_int8_extractor(self.model.cnn, calib,
+            extractor=quant.make_int8_extractor(self.model.cnn, None,
                                                 qp_sc=qp_sc))
         self.transform_extract = quant.make_int8_transform_extract(
-            self.model.cnn, calib, self.args.resolution, qp_sc=qp_sc)
+            self.model.cnn, None, self.args.resolution, qp_sc=qp_sc)
         print(f"int8: W8A8 extractor armed ({n} calibration tiles)")
 
     def _halt_non_finite(self, epoch: int, loss_sum: float) -> bool:
@@ -263,10 +291,10 @@ class Driver:
     def train_epoch(self, epoch: int, dataset, epoch_stats: dict):
         stage = schedule.stage_for_epoch(epoch)
         if stage.stop:
-            self.ckpt_writer.save(
-                checkpoint.checkpoint_path(self.output_dir, epoch, final=True),
-                self.model)
-            self.ckpt_writer.wait()
+            if self.writes:
+                self.ckpt_writer.save(checkpoint.checkpoint_path(
+                    self.output_dir, epoch, final=True), self.model)
+                self.ckpt_writer.wait()
             print(f"Stage = [Stop]: saved FINAL checkpoint at epoch {epoch}")
             return False
         print(f"===> TRAIN: Epoch = {epoch} "
@@ -278,6 +306,8 @@ class Driver:
 
         dataset.train()
         dataset.reseed_augment(self.args.seed, epoch)
+        # a mesh rank transforms only its share of each bag's subsample
+        dataset.defer_train = self.mesh is not None
         if self.args.workers > 1:
             # parallel producers deliver out of order, so each bag's noise
             # and its window vary from run to run: bit-exact resume holds
@@ -288,6 +318,8 @@ class Driver:
                              shuffle=True,
                              seed=epoch_loader_seed(self.args.seed, epoch),
                              workers=self.args.workers)
+        if self.mesh is not None:
+            return self._train_epoch_mesh(epoch, stage, loader, epoch_stats)
 
         # the scalars stay on the device through the epoch; one copy at
         # the end
@@ -328,22 +360,83 @@ class Driver:
                    else np.zeros((0,)) for k, v in dev_metrics.items()}
         dt = time.time() - t0
         predictions = [int(p) for p in fetched["y_pred_hat"]]
-        loss_sum = float(fetched["loss"].sum())
+        last_l2 = float(fetched["l2"][-1]) if len(fetched["l2"]) else 0.0
+        return self._finish_epoch(epoch, epoch_stats, labels, predictions,
+                                  {k: float(v.sum())
+                                   for k, v in fetched.items()},
+                                  last_l2, n, dt)
+
+    def _train_epoch_mesh(self, epoch, stage, loader, epoch_stats):
+        """The mesh path (the JAX trainer's ``_train_epoch_mesh``): each
+        accumulation window of bags is ONE window step, the gradient of the
+        window's summed losses and one Adam step, which is the sequential
+        accumulate-then-step. Every rank iterates the same loader and hands
+        the step the whole window; the step runs this rank's share."""
+        accum = self.args.accum
+        keys = ("loss", "error", "Aterm_mu", "Aterm_var", "KLD", "l2")
+        sums = dict.fromkeys(keys, 0.0)
+        predictions, labels, window = [], [], []
+        n, last_l2 = 0, 0.0
+        t0 = time.time()
+        timer = profiling.StepTimer() if self.args.profile else None
+
+        def run_window(bags):
+            nonlocal n, last_l2
+            real = len(bags)
+            # a partial tail window pads with zero-weight copies: they add
+            # neither gradients nor metrics
+            weights = [1.0] * real + [0.0] * (accum - real)
+            gens = [self.bag_generator(epoch, n + i) for i in range(real)]
+            gens += [self.bag_generator(epoch, n)] * (accum - real)
+            bags = bags + [bags[0]] * (accum - real)
+            metrics = self.window_step(
+                self.model, self.optimizer, [b[0] for b in bags],
+                [b[1] for b in bags], [b[2] for b in bags], stage.lr,
+                bag_weights=weights, generators=gens)
+            for k in keys:  # window means: keep the window's sums
+                sums[k] += float(metrics[k]) * real
+            last_l2 = float(metrics["l2"])
+            predictions.extend(int(p) for p in metrics["y_pred_hat"][:real])
+            labels.extend(int(b[2]) for b in bags[:real])
+            n += real
+
+        for tiles, mask, label in loader:
+            window.append((tiles, mask, label))
+            if len(window) >= accum:
+                with (timer.step() if timer is not None
+                      else contextlib.nullcontext()):
+                    run_window(window)
+                    if timer is not None and self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                window = []
+        if window:
+            run_window(window)
+        if timer is not None:
+            epoch_stats["step_times"] = timer.summary()
+        epoch_stats["input_stall_fraction"] = loader.stall_fraction()
+        return self._finish_epoch(epoch, epoch_stats, labels, predictions,
+                                  sums, last_l2, n, time.time() - t0)
+
+    def _finish_epoch(self, epoch, epoch_stats, labels, predictions, sums,
+                      last_l2, n, dt):
+        """The epoch's checkpoint (rank 0) and stats from its sums over
+        bags; a non-finite loss halts instead."""
+        loss_sum = sums["loss"]
         if not np.isfinite(loss_sum):
             return self._halt_non_finite(epoch, loss_sum)
-        self.ckpt_writer.save(checkpoint.checkpoint_path(self.output_dir,
-                                                         epoch),
-                              self.model, self.optimizer)
+        if self.writes:
+            self.ckpt_writer.save(
+                checkpoint.checkpoint_path(self.output_dir, epoch),
+                self.model, self.optimizer)
         n = max(n, 1)
         epoch_stats["train_acc"] = helpers.classification_report(
             labels, predictions, labels=[0, 1, 2], target_names=TARGET_NAMES)
         epoch_stats["train_loss"] = loss_sum / n
-        epoch_stats["train_wsum"] = float(fetched["Aterm_mu"].sum()) / n
-        epoch_stats["train_wvar"] = float(fetched["Aterm_var"].sum()) / n
-        epoch_stats["train_cll2"] = (float(fetched["l2"][-1])
-                                     if len(fetched["l2"]) else 0.0)
-        epoch_stats["train_kld"] = float(fetched["KLD"].sum()) / n
-        epoch_stats["train_err"] = float(fetched["error"].sum()) / n
+        epoch_stats["train_wsum"] = sums["Aterm_mu"] / n
+        epoch_stats["train_wvar"] = sums["Aterm_var"] / n
+        epoch_stats["train_cll2"] = last_l2
+        epoch_stats["train_kld"] = sums["KLD"] / n
+        epoch_stats["train_err"] = sums["error"] / n
         epoch_stats["train_secs"] = dt
         # the legacy summary keys the root plot script reads
         # (plot_gbm_metrics.py:55-56): the epoch's total loss and the
@@ -354,10 +447,24 @@ class Driver:
             helpers.get_layer_weight_summary_mean(self.model)
         epoch_stats["model_max_weights"] = \
             helpers.get_layer_weight_summary_max(self.model)
-        print(f"T: Loss {epoch_stats['train_loss']:.3f}; "
+        print(f"T{'' if self.mesh is None else '[mesh]'}: "
+              f"Loss {epoch_stats['train_loss']:.3f}; "
               f"Error {100 * epoch_stats['train_err']:.2f}%; "
               f"{n} slides in {dt:.1f}s")
         return True
+
+    def _stream_with_rank0(self, builders):
+        """A mesh rank other than 0 in validation and ``--interface``: it
+        takes its share of every slide that rank 0 streams (those above
+        ``--stream_tiles``), in rank 0's order; rank 0 runs the other
+        slides alone and writes every result."""
+        for builder in builders:
+            if builder.getsize() > self.stream_tiles:
+                inference.classify_slide_streaming(
+                    self.model, self.cfg, builder,
+                    resolution=self.args.resolution,
+                    compute_dtype=self.compute_dtype,
+                    transform_extract=self.transform_extract, mesh=self.mesh)
 
     # --------------------------------------------------------- validate
     def validate(self, epoch: int, dataset, epoch_stats: dict):
@@ -365,6 +472,9 @@ class Driver:
         stage = schedule.stage_for_epoch(epoch, test=True)
         dataset.eval()
         dataset.NewResolution(self.args.resolution)
+        if not self.writes:
+            self._stream_with_rank0(dataset.test_slide_builders)
+            return
         keys = ("loss", "error", "Aterm_mu", "KLD", "y_pred_hat")
         dev = {k: [] for k in keys}
         predvals, labels = [], []
@@ -391,7 +501,8 @@ class Driver:
                     self.model, self.cfg, payload,
                     resolution=self.args.resolution,
                     compute_dtype=self.compute_dtype,
-                    transform_extract=self.transform_extract)
+                    transform_extract=self.transform_extract,
+                    mesh=self.mesh)
                 outs = {k: torch.as_tensor(np.asarray(v)) for k, v in
                         inference.streaming_eval_outputs(
                             souts, label, self.cfg).items()}
@@ -421,7 +532,7 @@ class Driver:
         # are not ported (ROADMAP slice (d)), the data behind them is:
         # <epoch>predictions.json, plot_roc's input (reference:
         # gbm/plot_roc.py:12-38): score = P(class A), label = 1 iff A
-        if predvals:
+        if predvals and self.writes:
             plots.save_predictions(
                 self.output_dir, epoch, [float(p[0]) for p in predvals],
                 [1.0 if int(lbl) == 0 else 0.0 for lbl in labels])
@@ -453,6 +564,9 @@ class Driver:
         print("===> INTERFACING TO CAMICROSCOPE")
         dataset.interface()
         dataset.NewResolution(self.args.resolution)
+        if not self.writes:
+            self._stream_with_rank0(dataset.all_builders)
+            return
         out = self.output_dir
 
         def produce():
@@ -483,7 +597,8 @@ class Driver:
                         self.model, self.cfg, builder,
                         resolution=self.args.resolution,
                         compute_dtype=self.compute_dtype,
-                        transform_extract=self.transform_extract)
+                        transform_extract=self.transform_extract,
+                        mesh=self.mesh)
                     T = raster.shape[0]
                 else:
                     T = tiles.shape[0]
@@ -535,16 +650,33 @@ def _refuse_not_ported(args):
 
 def main(argv=None, *, device=None):
     """The CLI. ``device`` is where the model trains and bags are built:
-    the card unless ``"cpu"`` is asked for (there is no fallback)."""
+    the card unless ``"cpu"`` is asked for (there is no fallback). With
+    ``--mesh N`` it spawns N ranks (``parallel/mesh.py``), one card each
+    (N CPU ranks over gloo with ``device="cpu"``), and returns rank 0's
+    exit code; asking for more cards than there are raises."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     _refuse_not_ported(args)
+    if args.mesh:
+        return M.launch(_mesh_rank, args.mesh, args=(argv,),
+                        devices=M.mesh_devices(args.mesh, device))[0]
+    return _run(args, resolve_device(device))
+
+
+def _mesh_rank(mesh, argv):
+    """One rank of ``--mesh N``: the CLI on the rank's device."""
+    return _run(build_argparser().parse_args(argv), mesh.device, mesh=mesh)
+
+
+def _run(args, device, mesh=None):
     print(args)
-    device = resolve_device(device)
     if args.interface:
         output_dir = os.path.join(args.output_root, "interface_data")
     else:
         output_dir = os.path.join(args.output_root, f"run_{args.tag}")
-    os.makedirs(output_dir, exist_ok=True)
+    writes = mesh is None or mesh.rank == 0
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
 
     dataset = ds_mod.GHPSingleBagDatasetSimple(
         bag=True, output_dir=output_dir, root_dir=args.data_root,
@@ -552,12 +684,13 @@ def main(argv=None, *, device=None):
         roi_size=args.roi_size, seed=args.seed,
         train_pad=args.train_pad, device=device)
     if args.split_ckpt:
-        dataset.load_from_checkpoint(args.split_ckpt)
+        dataset.load_from_checkpoint(args.split_ckpt, save=writes)
     else:
-        dataset.load_new(n_folds=6, n_fold_selection=args.fold)
+        dataset.load_new(n_folds=6, n_fold_selection=args.fold,
+                         save=writes)
 
     cfg = make_config(args, dataset.GetClassWeights())
-    driver = Driver(args, cfg, output_dir, device=device)
+    driver = Driver(args, cfg, output_dir, device=device, mesh=mesh)
 
     if args.ckpt == "auto":
         # elastic resume: pick up the newest checkpoint in the run dir
@@ -576,6 +709,7 @@ def main(argv=None, *, device=None):
         if not args.transfer:
             checkpoint.restore_opt_state(driver.optimizer, driver.model,
                                          args.ckpt)
+    driver.replicate()
 
     if args.int8:
         if not (args.interface or args.test_only):
@@ -594,7 +728,7 @@ def main(argv=None, *, device=None):
         driver.enable_int8(list(dataset.test_slide_builders)
                            or list(dataset.all_builders))
 
-    if args.epoch_start == 0:
+    if args.epoch_start == 0 and writes:
         with open(os.path.join(output_dir, "model_structure.txt"), "w+") as f:
             f.write(helpers.model_summary(driver.model))
 
@@ -605,11 +739,13 @@ def main(argv=None, *, device=None):
     if args.test_only:
         epoch_stats = {}
         driver.validate(args.epoch_start, dataset, epoch_stats)
-        helpers.savestats(args, output_dir, args.epoch_start, epoch_stats)
+        if writes:
+            helpers.savestats(args, output_dir, args.epoch_start,
+                              epoch_stats)
         return 0
 
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and writes:
         from ..utils.tb import EpochWriter
 
         tb_writer = EpochWriter(os.path.join(args.output_root, "runs",
@@ -622,7 +758,7 @@ def main(argv=None, *, device=None):
             # with wall time, and one epoch answers where the steps go
             trace_ctx = (profiling.trace(os.path.join(output_dir, "profile"),
                                          device=device)
-                         if args.profile and ep == args.epoch_start
+                         if args.profile and ep == args.epoch_start and writes
                          else contextlib.nullcontext())
             with trace_ctx:
                 keep_going = driver.train_epoch(ep, dataset, epoch_stats)
@@ -630,12 +766,16 @@ def main(argv=None, *, device=None):
                 break  # Stop stage, or a halt on a non-finite loss
             if ep % 5 == 0:
                 driver.validate(ep, dataset, epoch_stats)
-                helpers.savestats(args, output_dir, ep, epoch_stats)
+                if writes:
+                    helpers.savestats(args, output_dir, ep, epoch_stats)
                 # the JAX trainer redraws plot_gbm_metrics here; the
                 # figures wait for ROADMAP slice (d)
             if tb_writer is not None:
                 tb_writer.log_epoch(ep, epoch_stats)
-            if latch.stop_requested():
+            stop = latch.stop_requested()
+            if mesh is not None:  # rank 0's signal decides for every rank
+                stop = M.broadcast_object(stop, mesh)
+            if stop:
                 # epoch ep's checkpoint is submitted; the wait() below
                 # makes it durable before the clean exit
                 print(f"train: preempted, stopped after epoch {ep}; "

@@ -36,9 +36,17 @@ reshaped into a restartable service).
     tile-less slide fails (a bundle has no zero-bag program) and is
     retried like any bad slide.
 
-``--mesh`` (ROADMAP A.10) is not ported yet and refuses to start. The
-device is an argument of :class:`SlideServer` and :func:`main` (the card
-by default), not a flag.
+``--mesh N`` serves on N cards, one rank each (``parallel/mesh.py``):
+rank 0 polls the manifest or the directory, prepares each slide and sends
+its path (or a ``--batch`` group's paths) to the other ranks; every rank
+then takes its share of the slide's tiles (the streaming path spreads each
+chunk over every rank; a batch spreads its slides and tiles over the mesh),
+and rank 0 writes the row and the ``.dla`` maps. Every rank must succeed
+on a slide, or all of them count it as failed. ``--int8`` calibrates on
+rank 0 and sends the scales to the others; ``--prewarm`` warms each card;
+``--bundle`` refuses ``--mesh``, as in the JAX package. The device is an
+argument of :class:`SlideServer` and :func:`main` (the card by default),
+not a flag.
 
 Run::
 
@@ -63,14 +71,13 @@ from ..data.roibuilder import EMPTY_BAG_TILES, ROI_SIZE, RoiBuilder
 from ..models import attention_mil as amil
 from ..ops import _build
 from ..parallel import inference
+from ..parallel import mesh as M
 from ..utils import helpers
 from . import checkpoint
 from .classify import make_config
 
 SLIDE_EXTS = (".scn", ".svs", ".tif", ".tiff", ".npy")
 CSV_HEADER = ("name,prob_0,prob_1,prob_2,pred,Aterm_var,ntiles,secs\n")
-# the ROADMAP items that bring the options this port does not have yet
-NOT_PORTED = {"mesh": "A.10 (multi-GPU)"}
 
 
 def build_argparser():
@@ -115,8 +122,10 @@ def build_argparser():
                    help="slides with more tiles than this take the "
                         "streaming path instead of a batch")
     p.add_argument("--mesh", default=0, type=int,
-                   help="shard each chunk over N cards: not ported yet "
-                        "(ROADMAP A.10); refuses to start")
+                   help="serve on N cards, one rank each: each streamed "
+                        "chunk's tiles (and each --batch group's slides "
+                        "and tiles) spread over the ranks; rank 0 polls "
+                        "and writes")
     p.add_argument("--io_depth", default=1, type=int,
                    help="prepare (cache build / readahead) up to N slides "
                         "ahead on a background thread while the card "
@@ -141,31 +150,34 @@ def build_argparser():
     return p
 
 
+def _refuse_bundle_mix(args):
+    if args.bundle and (args.int8 or args.batch > 1 or args.mesh):
+        raise SystemExit(
+            "serve: --bundle serves the exported programs as-is; "
+            "--int8/--batch/--mesh recompose the live program and "
+            "cannot apply — re-export a bundle with the variant you "
+            "need")
+
+
 class SlideServer:
     """The daemon's state: model, output files, processed set, retries.
     ``device`` is where the model runs and bags are built (the card unless
-    ``"cpu"`` is asked for)."""
+    ``"cpu"`` is asked for). With ``mesh`` this is one rank of a mesh:
+    rank 0 leads (:meth:`run`) and owns the files, the others follow it
+    (:meth:`follow`)."""
 
     MAX_ATTEMPTS = 3
     GIVEUP_BACKOFF_SECS = 300.0
 
-    def __init__(self, args, *, device=None):
-        if args.bundle and (args.int8 or args.batch > 1 or args.mesh):
-            raise SystemExit(
-                "serve: --bundle serves the exported programs as-is; "
-                "--int8/--batch/--mesh recompose the live program and "
-                "cannot apply — re-export a bundle with the variant you "
-                "need")
-        for flag, item in NOT_PORTED.items():
-            if getattr(args, flag):
-                raise SystemExit(
-                    f"serve: --{flag} is not ported to the PyTorch package "
-                    f"yet; ROADMAP item {item} brings it")
+    def __init__(self, args, *, device=None, mesh=None):
+        _refuse_bundle_mix(args)
         self.args = args
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = make_config(args)
         self.compute_dtype = None if args.f32 else torch.bfloat16
-        os.makedirs(args.out_root, exist_ok=True)
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(args.out_root, exist_ok=True)
         self.results_path = os.path.join(args.out_root, "results.csv")
         self.processed_path = os.path.join(args.out_root, "processed.txt")
         # graceful-stop latch (SIGTERM from a supervisor, see main()):
@@ -212,6 +224,8 @@ class SlideServer:
         self.attempts = {}
 
         self.processed = set()
+        if mesh is not None and mesh.rank != 0:
+            return  # a follower writes nothing and keeps no backlog
         if os.path.isfile(self.processed_path):
             with open(self.processed_path) as f:
                 self.processed = {ln.strip() for ln in f if ln.strip()}
@@ -240,21 +254,39 @@ class SlideServer:
             return
         from ..ops import quant
 
-        calib = quant.calib_tiles_from_builder(
-            builder, max(int(self.args.int8_calib), 1), self.args.resolution)
-        if calib is None:
+        cnn = self.model.cnn
+        qp_sc, n, err = None, 0, None
+        if self.mesh is None or self.mesh.rank == 0:
+            try:
+                calib = quant.calib_tiles_from_builder(
+                    builder, max(int(self.args.int8_calib), 1),
+                    self.args.resolution)
+                if calib is not None:
+                    qp_sc = quant.quantize_and_calibrate(cnn, calib)
+                    n = int(calib.shape[0])
+            except Exception as e:
+                if self.mesh is None:
+                    raise
+                err = e
+        if self.mesh is not None:
+            # rank 0 calibrates and sends every rank its scales, or its
+            # error: then every rank fails the slide together
+            qp_sc, n, failed = M.broadcast_object(
+                (qp_sc, n, None if err is None else repr(err)), self.mesh)
+            if failed:
+                raise err or RuntimeError(f"int8 calibration failed on "
+                                          f"rank 0: {failed}")
+        if qp_sc is None:
             print(f"serve: int8 calibration deferred: {builder.getname()} "
                   "has no tiles")
             return
-        cnn = self.model.cnn
-        qp_sc = quant.quantize_and_calibrate(cnn, calib)
         self._transform_extract = quant.make_int8_transform_extract(
-            cnn, calib, self.args.resolution, qp_sc=qp_sc)
-        self._int8_extractor = quant.make_int8_extractor(cnn, calib,
+            cnn, None, self.args.resolution, qp_sc=qp_sc)
+        self._int8_extractor = quant.make_int8_extractor(cnn, None,
                                                          qp_sc=qp_sc)
         self._int8_pending = False
-        print(f"serve: int8 W8A8 extractor armed ({int(calib.shape[0])} "
-              f"calibration tiles from {builder.getname()})")
+        print(f"serve: int8 W8A8 extractor armed ({n} calibration tiles "
+              f"from {builder.getname()})")
 
     def _mark_processed(self, name: str):
         self.attempts.pop(name, None)
@@ -300,12 +332,9 @@ class SlideServer:
                 return False
             probs, outs, raster = self.bundle.classify_builder(builder)
         else:
-            self._ensure_int8(builder)
-            probs, outs, raster = inference.classify_slide_streaming(
-                self.model, self.cfg, builder,
-                resolution=self.args.resolution, chunk=self.args.chunk,
-                compute_dtype=self.compute_dtype,
-                transform_extract=self._transform_extract)
+            probs, outs, raster = self._lead(("slide", path),
+                                             lambda: builder,
+                                             self._classify_slide)
         T = raster.shape[0]
         helpers.write_map(builder.getmeta(), 0, np.asarray(raster),
                           np.asarray(outs["Aterm"])[:, :T],
@@ -319,6 +348,68 @@ class SlideServer:
               f"({builder.getsize()} tiles, {secs:.2f}s)")
         return True
 
+    def _classify_slide(self, builder):
+        """One slide through the streaming path, on every rank of the
+        mesh together when there is one."""
+        self._ensure_int8(builder)
+        return inference.classify_slide_streaming(
+            self.model, self.cfg, builder, resolution=self.args.resolution,
+            chunk=self.args.chunk, compute_dtype=self.compute_dtype,
+            transform_extract=self._transform_extract, mesh=self.mesh)
+
+    def _together(self, prepare, run):
+        """``run(prepare())`` on this rank, in step with the others: every
+        rank first settles whether its ``prepare`` (host work, no
+        collective) succeeded, so that no rank enters the collectives of
+        ``run`` while another has dropped out, then whether ``run``
+        succeeded. ``run`` keeps the ranks in step through a failure
+        itself: the int8 calibration sends rank 0's error with its result,
+        and the serving paths settle their local work before their first
+        collective (``parallel/inference.py``). A failure on any rank
+        raises on every rank (one per slide: the daemon's retry and
+        backoff see it on rank 0)."""
+        state = M.run_together(prepare, self.mesh, what="preparing a slide")
+        return M.run_together(lambda: run(state), self.mesh,
+                              what="classifying a slide")
+
+    def _lead(self, cmd, prepare, run):
+        """Rank 0 (or the only rank): send ``cmd`` to the other ranks,
+        then :meth:`_together`."""
+        if self.mesh is None:
+            return run(prepare())
+        M.broadcast_object(cmd, self.mesh)
+        return self._together(prepare, run)
+
+    def _follower_builder(self, path):
+        builder = self._make_builder(path)
+        builder.update_resolution_and_buffer(self.args.resolution)
+        return builder
+
+    def follow(self) -> int:
+        """A mesh rank other than 0: do what rank 0 sends, a slide or a
+        ``--batch`` group, in step with it, until it stops (``--once``
+        drained, or a stop request)."""
+        if self.args.prewarm:
+            self.prewarm()
+        while True:
+            kind, payload = M.broadcast_object(None, self.mesh)
+            if kind == "stop":
+                return 0
+            if kind == "poll":
+                continue
+            try:
+                if kind == "slide":
+                    self._together(lambda: self._follower_builder(payload),
+                                   self._classify_slide)
+                elif kind == "group":
+                    self._together(
+                        lambda: self._group_bags(
+                            [self._follower_builder(p) for p in payload]),
+                        self._classify_group)
+            except Exception as e:  # rank 0 records the failure
+                print(f"serve: rank {self.mesh.rank}: {kind} failed: {e}",
+                      file=sys.stderr)
+
     def _batched_infer(self):
         """The batched forward of ``--batch``, rebuilt when the extractor
         changes (``--int8`` arms after the first slide with tiles). The
@@ -326,18 +417,12 @@ class SlideServer:
         ex = self._int8_extractor
         if self._binfer is None or self._binfer[0] is not ex:
             self._binfer = (ex, inference.make_batched_infer(
-                self.cfg, compute_dtype=self.compute_dtype, extractor=ex,
-                transform_resolution=self.args.resolution))
+                self.cfg, mesh=self.mesh, compute_dtype=self.compute_dtype,
+                extractor=ex, transform_resolution=self.args.resolution))
         return self._binfer[1]
 
-    def process_group(self, builders) -> int:
-        """--batch: several small slides through one extractor call, then
-        one pool per slide; the same artifacts per slide as ``process``."""
-        t0 = time.perf_counter()
-        if self._int8_pending:
-            armed_on = next((b for b in builders if b.getsize() > 0), None)
-            if armed_on is not None:
-                self._ensure_int8(armed_on)
+    def _group_bags(self, builders):
+        """The group's builders, raw tile stacks and rasters (host work)."""
         bags, rasters = [], []
         for b in builders:
             raw, coords = b._load_cache(with_coords=True, mmap=True)
@@ -348,8 +433,27 @@ class SlideServer:
                 coords = np.zeros((0, 2), np.int64)
             bags.append(raw)
             rasters.append(np.asarray(coords))
-        probs, outs = inference.classify_slides_batched(
-            self.model, self.cfg, bags, infer_fn=self._batched_infer())
+        return builders, bags, rasters
+
+    def _classify_group(self, state):
+        """A ``--batch`` group through the batched forward (over the mesh
+        when there is one): ``(rasters, (probs, outs))``."""
+        builders, bags, rasters = state
+        if self._int8_pending:
+            armed_on = next((b for b in builders if b.getsize() > 0), None)
+            if armed_on is not None:
+                self._ensure_int8(armed_on)
+        return rasters, inference.classify_slides_batched(
+            self.model, self.cfg, bags, infer_fn=self._batched_infer(),
+            mesh=self.mesh)
+
+    def process_group(self, builders) -> int:
+        """--batch: several small slides through one extractor call, then
+        one pool per slide; the same artifacts per slide as ``process``."""
+        t0 = time.perf_counter()
+        rasters, (probs, outs) = self._lead(
+            ("group", [b.params["fullpath"] for b in builders]),
+            lambda: self._group_bags(builders), self._classify_group)
         secs = (time.perf_counter() - t0) / max(len(builders), 1)
         n_done = 0
         for i, b in enumerate(builders):
@@ -533,6 +637,9 @@ class SlideServer:
                   flush=True)
             return
         n = min(self.args.chunk, tiles)
+        if self.mesh is not None:  # each rank extracts its share of a chunk
+            n = inference.streaming_chunk_for(
+                tiles, self.args.chunk, self.mesh.size) // self.mesh.size
         with torch.no_grad():
             if self.args.int8:
                 print("serve: prewarm skips the extractor under --int8 "
@@ -560,12 +667,23 @@ class SlideServer:
                   "then exiting; restart resumes the backlog", flush=True)
 
     def run(self) -> int:
+        """The daemon's loop (rank 0 of a mesh leads it: the other ranks
+        :meth:`follow`, and stop when it returns)."""
+        try:
+            return self._run()
+        finally:
+            if self.mesh is not None:
+                M.broadcast_object(("stop", None), self.mesh)
+
+    def _run(self) -> int:
         self.prewarm()
         n_total, n_failed = 0, 0
         while True:
             done, failed = self._drain(self.pending())
             n_total += done
             n_failed += failed
+            if self.mesh is not None:  # the followers wait between polls
+                M.broadcast_object(("poll", None), self.mesh)
             if self._stop_event.is_set():
                 print(f"serve: stopped gracefully ({n_total} slides, "
                       f"{n_failed} failed); state is durable, restart "
@@ -580,9 +698,31 @@ class SlideServer:
 
 
 def main(argv=None, *, device=None) -> int:
+    """The CLI. With ``--mesh N`` it spawns N ranks (``parallel/mesh.py``),
+    one card each (N CPU ranks over gloo with ``device="cpu"``), and
+    returns rank 0's exit code; asking for more cards than there are
+    raises."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
+    if args.mesh:
+        _refuse_bundle_mix(args)
+        return M.launch(_mesh_rank, args.mesh, args=(argv,),
+                        devices=M.mesh_devices(args.mesh, device))[0]
+    return _serve(args, device)
+
+
+def _mesh_rank(mesh, argv):
+    """One rank of ``--mesh N``: rank 0 leads the daemon, the others
+    follow it."""
+    args = build_argparser().parse_args(argv)
+    if mesh.rank != 0:
+        return SlideServer(args, device=mesh.device, mesh=mesh).follow()
+    return _serve(args, mesh.device, mesh=mesh)
+
+
+def _serve(args, device, mesh=None) -> int:
     print(args)
-    server = SlideServer(args, device=device)
+    server = SlideServer(args, device=device, mesh=mesh)
     try:
         # supervisors (systemd, k8s) stop with SIGTERM: drain the slide in
         # flight, record it, exit 0

@@ -16,6 +16,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import conftest  # noqa: F401
 import jax
@@ -270,11 +271,20 @@ def test_prewarm_runs_before_the_first_slide(slide_tree, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [(["--mesh", "4"], "A.10")])
-def test_unported_options_refuse_to_start(slide_tree, tmp_path, flag, item):
+def test_unported_options_refuse_to_start(slide_tree, tmp_path, monkeypatch,
+                                          flag, item):
+    """``--mesh`` (ROADMAP ``item``) is ported: its help no longer names
+    the item, and on the card (the default device) it refuses to start
+    only when the host has fewer cards than ranks, naming the count,
+    before anything is written (tests/test_torch_mesh_serve.py serves
+    with it)."""
     tree, _ = slide_tree
-    with pytest.raises(SystemExit, match=item):
-        _run(["--watch_dir", str(tree / "slides"), "--out_root",
-              str(tmp_path / "x")] + flag + COMMON)
+    assert item not in serve.build_argparser().format_help()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="--mesh 4 but only 2 CUDA"):
+        serve.main(["--watch_dir", str(tree / "slides"), "--out_root",
+                    str(tmp_path / "x")] + flag + COMMON)
     assert not os.path.exists(tmp_path / "x")
 
 

@@ -3,7 +3,7 @@ on the CPU: the JAX CLI's artifacts and summary schema, ``--test_only``
 and ``--transfer`` from its checkpoint, bit-exact resume (``--ckpt auto``
 replays the uninterrupted run's next epoch), the non-finite-loss halt,
 and the flags that are not ported yet (``--peak``, ``--n_vis`` above 0,
-``--mesh``) refusing to start."""
+also under ``--mesh``) refusing to start."""
 
 import argparse
 import csv
@@ -149,8 +149,10 @@ def test_cli_halts_on_a_non_finite_loss(tree, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--peak"], ["--n_vis", "2"],
-                                  ["--mesh", "2"]])
+                                  ["--mesh", "2", "--peak"]])
 def test_cli_refuses_flags_not_ported(tree, argv):
+    # --mesh is ported (tests/test_torch_mesh_serve.py); a flag that is
+    # not refuses before any rank starts
     with pytest.raises(SystemExit, match="ROADMAP"):
         _run(tree, "NO", *argv)
     assert not (tree / "runs" / "run_NO").exists()
