@@ -5,9 +5,11 @@
 Builds every CUDA kernel of the serving and training paths from the
 sources in this checkout (the gated-attention pool, forward and backward,
 and the fused uint8 stem, one ``nvcc`` each, in parallel; the stem's SASS
-must hold tensor-core instructions), holds each against its plain PyTorch
-version on the card (the pool also at the edges of its partition of T,
-and bit-identical over two calls), drives full-width slide
+must hold tensor-core instructions, and ptxas must report no spill for
+the pool's backward), holds each against its plain PyTorch version on
+the card (the pool also at the edges of its partitions of T, the
+backward's cluster sizes included, and bit-identical over two calls),
+drives full-width slide
 serving (``classify_slide`` and ``classify_slide_streaming``) on synthetic
 slides written and cached by the port's own RoiBuilder, serves a manifest
 of slides through the serving daemon (``train.serve.main``) from a
@@ -48,9 +50,10 @@ daemon serially, with ``--batch 4`` and with ``--int8``) against the same
 CLI runs on the card. ``chip_smoke.py --mesh-cards N``, on a machine with
 N cards, runs only the mesh's checks with one rank a card over NCCL,
 then the CLIs with ``--mesh N``. A kernel's device time is per call,
-summed over the CUDA launches of the call (the pool makes two above
-``gated_pool.POOL_RANGE`` tiles); its launch counts are wrapper calls that
-reached the kernel. Progress (and the daemon's own
+summed over the CUDA launches of the call (the pool's forward makes two
+above ``gated_pool.POOL_RANGE`` tiles; each entry of its backward makes
+one, which the profiler must see); its launch counts are wrapper calls
+that reached the kernel. Progress (and the daemon's own
 prints) goes to stderr; results go to stdout as JSON lines, each timing
 beside the card's name and power limit. The second-to-last line lists the
 kernels, the last line is the device record.
@@ -194,16 +197,52 @@ POOL_REPEAT_T = 50000
 # timed: the one-pass slide (the kernels line), the streaming slide, and a
 # 50k-tile slide
 POOL_TIMED_T = (2000, 5000, 50000)
+# the T at which the backward's partition (gated_pool.pool_bwd_partition)
+# changes its cluster size
+POOL_BWD_EDGES = [t for t in range(1, 4 * gated_pool.BWD_CLUSTERS[-1][0])
+                  if gated_pool.pool_bwd_partition(t)[0]
+                  != gated_pool.pool_bwd_partition(t + 1)[0]]
 # the backward kernel against its plain version: one tile, a few bag sizes,
-# the edges of the partition of T, a 50k-tile bag and every training bag's
-# subsample
-POOL_BWD_T = sorted({1, 200, 500, 2047, 2048, 2049, 4097, 50000}
-                    | set(TRAIN_POOL_T))
-# timed: the largest training bag (the kernels line) and a 50k-tile bag
-POOL_BWD_TIMED_T = (500, 50000)
+# the edges of the forward's partition of T, a two-rank shard of a training
+# subsample (250), the edges of the backward's cluster sizes +-1, a 50k-tile
+# bag and every training bag's subsample, all at K = 3, O = 1; and a few at
+# K = 5, O = 2 (two passes over the maps, a B of two columns)
+POOL_BWD_T = sorted({1, 200, 250, 500, 2047, 2048, 2049, 4097, 50000}
+                    | set(TRAIN_POOL_T)
+                    | {e + d for e in POOL_BWD_EDGES for d in (-1, 0, 1, 2)})
+POOL_BWD_SHAPES = ([(t, 3, 1) for t in POOL_BWD_T]
+                   + [(7, 5, 2), (500, 5, 2), (POOL_BWD_EDGES[0] + 1, 5, 2),
+                      (4097, 5, 2)])
+# timed: every training bag's subsample (the kernels line: the largest) and
+# a 50k-tile bag
+POOL_BWD_TIMED_T = (40, 400, 500, 50000)
 KERNELS = ("gated_pool", "u8_stem")
 # the AOT bundles' tile bound: above the 5000-tile streaming slide
 BUNDLE_TILES = 8192
+
+
+def ptxas_report(log, match):
+    """The ptxas lines (registers, shared memory, stack and spills) of each
+    kernel of a build log whose name holds ``match``: ``{name: lines}``."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                report[name] = []
+        elif name and ("registers" in line or "spill" in line
+                       or "stack frame" in line):
+            report[name].append(line.strip())
+    return report
+
+
+def require_no_spill(report):
+    """Fail unless every kernel of a ptxas report spills 0 bytes."""
+    spills = {nm: ln for nm, lines in report.items() for ln in lines
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)}
+    if not report or spills:
+        raise AssertionError(f"ptxas: spills or no report: {spills or report}")
 
 
 def tensor_core_instructions(lib):
@@ -422,32 +461,32 @@ def time_pool(card):
     return rows
 
 
-def pool_backward_case(t, seed, only_dm, all_masked):
+def pool_backward_case(t, seed, only_dm, all_masked, k=3, o=1):
     """Inputs, the kernel's forward A1T and the cotangents of one backward
     case on the card (dA1T and dwROIs None with ``only_dm``, the training
     path's pattern)."""
-    args = pool_inputs(t, 3, 1, seed, all_masked=all_masked)
+    args = pool_inputs(t, k, o, seed, all_masked=all_masked)
     g = torch.Generator().manual_seed(seed + 1)
-    cots = [torch.randn((3, 1), generator=g)] + [
-        None if only_dm else torch.randn((3, t), generator=g)
+    cots = [torch.randn((k, o), generator=g)] + [
+        None if only_dm else torch.randn((k, t), generator=g)
         for _ in range(2)]
     a1t = gated_pool.gated_attention_pool(*args)[1]
     return args, a1t, [None if c is None else c.cuda() for c in cots]
 
 
 def check_pool_backward():
-    """The backward kernel vs its plain version on the card, at every T of
-    POOL_BWD_T, with all three cotangents random and with only dM, with
-    part of the mask zero and with all of it zero: max error per output
-    <= 1e-5 x max|ref|. Then two calls at T = 50000 must be bit-identical.
-    Returns the worst absolute error."""
+    """The backward kernel vs its plain version on the card, at every shape
+    of POOL_BWD_SHAPES, with all three cotangents random and with only dM,
+    with part of the mask zero and with all of it zero: max error per
+    output <= 1e-5 x max|ref|. Then two calls at T = 50000 must be
+    bit-identical. Returns the worst absolute error."""
     worst = 0.0
     n_fwd, n_bwd = gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES
-    for i, t in enumerate(POOL_BWD_T):
+    for i, (t, k, o) in enumerate(POOL_BWD_SHAPES):
         for only_dm in (False, True):
             for all_masked in (False, True):
                 args, a1t, cots = pool_backward_case(t, 300 + i, only_dm,
-                                                     all_masked)
+                                                     all_masked, k, o)
                 got = gated_pool.gated_attention_pool_backward(
                     *args, a1t, *cots)
                 torch.cuda.synchronize()
@@ -456,8 +495,9 @@ def check_pool_backward():
                 errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
                 refs = [float(w.abs().max()) for w in want]
                 ok = all(e <= 1e-5 * r for e, r in zip(errs, refs))
-                emit({"phase": "pool_backward_vs_plain", "T": t, "K": 3,
-                      "O": 1, "cotangents": "dM" if only_dm else "all",
+                emit({"phase": "pool_backward_vs_plain", "T": t, "K": k,
+                      "O": o, "cluster": gated_pool.pool_bwd_partition(t)[0],
+                      "cotangents": "dM" if only_dm else "all",
                       "mask": "zero" if all_masked else "part",
                       "err_dA_raw": errs[0], "err_dB": errs[1],
                       "err_dw": errs[2], "max_abs_ref": refs,
@@ -465,7 +505,8 @@ def check_pool_backward():
                 if not ok:
                     raise AssertionError(
                         f"gated_pool backward kernel disagrees at T={t}, "
-                        f"only_dm={only_dm}, all_masked={all_masked}")
+                        f"K={k}, O={o}, only_dm={only_dm}, "
+                        f"all_masked={all_masked}")
                 worst = max(worst, *errs)
     args, a1t, cots = pool_backward_case(POOL_REPEAT_T, 99, False, False)
     first = gated_pool.gated_attention_pool_backward(*args, a1t, *cots)
@@ -473,7 +514,7 @@ def check_pool_backward():
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     emit({"phase": "pool_backward_repeat", "T": POOL_REPEAT_T,
-          "nblk": gated_pool.pool_partition(POOL_REPEAT_T)[0],
+          "cluster": gated_pool.pool_bwd_partition(POOL_REPEAT_T)[0],
           "bit_identical": same})
     if not same:
         raise AssertionError("two gated_pool backward calls on the same "
@@ -481,6 +522,16 @@ def check_pool_backward():
     # comparison launches are not the main path's
     gated_pool.LAUNCHES, gated_pool.BWD_LAUNCHES = n_fwd, n_bwd
     return worst
+
+
+def require_one_launch(entry, t, how):
+    """Fail unless the profiler saw one launch a call of a backward entry
+    (its records over its calls, rounded: the profiler on the H100 host
+    now and then records a launch short)."""
+    per_call = how.get("launches_per_call")
+    if per_call is None or round(per_call) != 1:
+        raise AssertionError(f"{entry} at T={t}: {per_call} launches a call "
+                             "(want 1)")
 
 
 def pool_bwd_bound_ms(t, k, o):
@@ -499,12 +550,11 @@ def pool_bwd_bound_ms(t, k, o):
 
 def time_pool_backward(card):
     """At each T of POOL_BWD_TIMED_T, with the training path's cotangents
-    (dM only): the backward kernel's device time per call (``ms``, summed
-    over its one or three launches), the plain chain's device time
+    (dM only): the backward kernel's device time per call (``ms``; its one
+    launch a call is required), the plain chain's device time
     (``plain_device_ms``), both per call by CUDA events (``wrapper_ms``,
     ``plain_ms``), the bound, and the floor of a latency-bound call: one
-    near-empty launch's device time (a one-element fill) times the
-    backward's launches per call (``floor_ms``)."""
+    near-empty launch's device time (a one-element fill, ``floor_ms``)."""
     rows = {}
     n_bwd = gated_pool.BWD_LAUNCHES
     tiny = torch.zeros(1, device="cuda")
@@ -521,12 +571,12 @@ def time_pool_backward(card):
                 *args, a1t, *cots)
 
         ms, how = device_ms(kernel, 200, match="gated_pool_bwd")
+        require_one_launch("gated_pool_backward", t, how)
         wrapper_ms = time_cuda(kernel, 200)
         plain_device, how_plain = device_ms(plain, 50)
         plain_ms = time_cuda(plain, 200)
         bound, bound_by = pool_bwd_bound_ms(t, 3, 1)
-        floor = launch_floor * (1 if gated_pool.pool_partition(t)[0] == 1
-                                else 3)
+        floor = launch_floor
         rows[t] = {"ms": ms, **ms_how(how), "wrapper_ms": wrapper_ms,
                    "floor_ms": floor, **ms_how(how_floor, "floor_ms"),
                    "plain_ms": plain_ms, "plain_device_ms": plain_device,
@@ -534,7 +584,7 @@ def time_pool_backward(card):
                    "bound_ms": bound, "bound_by": bound_by,
                    "bound_share": bound / ms}
         emit({"phase": "pool_backward_time", "T": t, "K": 3, "O": 1,
-              "nblk": gated_pool.pool_partition(t)[0],
+              "cluster": gated_pool.pool_bwd_partition(t)[0],
               "kernel_device_us": 1e3 * ms, **ms_how(how),
               "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
               "plain_device_us": 1e3 * plain_device,
@@ -2050,10 +2100,16 @@ def bundle_phase(ckpt, one, big, hi, slides, card):
 # The (slides, tiles) mesh (parallel/mesh.py) on the one card: the pool's
 # split entries against the one-call kernel, a world of one over NCCL
 # against the single-card path, two ranks on cuda:0 over gloo against the
-# world of one. The split entries are checked at every T the paths pool
-# and at a 50k-tile bag; timed at the one-pass slide and the 50k bag.
-MESH_POOL_T = sorted(set(MAIN_PATH_T) | {POOL_REPEAT_T})
+# world of one. The split entries are checked at every T the paths pool,
+# at a two-rank shard of a training subsample (250), just above each edge
+# of the backward's cluster sizes and at a 50k-tile bag; timed at the
+# one-pass slide and the 50k bag (the backward at 250 as well).
+MESH_POOL_T = sorted(set(MAIN_PATH_T) | {POOL_REPEAT_T, 250}
+                     | {e + 1 for e in POOL_BWD_EDGES})
 MESH_TIMED_T = (2000, 50000)
+# the split backward is timed at a two-rank shard of a training subsample
+# (250) as well
+MESH_BWD_TIMED_T = (250, 2000, 50000)
 # the window of the mesh's training checks: two bags of the one-pass
 # slide's tiles (their 20 % subsamples are 120 and 80 tiles). The world of
 # one is held to one card at 300 px. Two ranks split each bag's tiles, so
@@ -2184,43 +2240,63 @@ def check_split_pool(device="cuda"):
 
 
 def time_split_pool(card):
-    """At each T of MESH_TIMED_T, one shard of the split forward (partials,
-    then finish) and of the split backward (dM only): device time per call
-    (summed over its launches), CUDA-event time per call, the plain
-    versions' time, the bound (the one-call pool's bytes and operations)."""
+    """One shard of the split forward (partials, then finish) at each T of
+    MESH_TIMED_T and of the split backward (dM only) at each T of
+    MESH_BWD_TIMED_T: device time per call (summed over its launches; each
+    backward entry timed alone as well, and required to be one launch a
+    call), CUDA-event time per call, the plain versions' time, the bound
+    (the one-call pool's bytes and operations)."""
     saved = pool_counts()
     rows = {"forward": {}, "backward": {}}
-    for t in MESH_TIMED_T:
+    for t in sorted(set(MESH_TIMED_T) | set(MESH_BWD_TIMED_T)):
         args = pool_inputs(t, 3, 1, seed=9)
         a1t = gated_pool.gated_attention_pool(*args)[1]
         dm = torch.randn((3, 1), generator=torch.Generator().manual_seed(3)
                          ).cuda()
-        cases = {
-            "forward": (
+        stats = gated_pool.pool_backward_partials(*args, a1t, dm)[0]
+        cases = {}
+        if t in MESH_TIMED_T:
+            cases["forward"] = (
                 lambda: gated_pool.pool_forward_finish(
                     *args, gated_pool.pool_forward_partials(*args)),
                 lambda: gated_pool.pool_forward_finish_reference(
                     *args, gated_pool.pool_forward_partials_reference(*args)),
-                pool_bound_ms(t, 3, 1)),
-            "backward": (
+                pool_bound_ms(t, 3, 1))
+        if t in MESH_BWD_TIMED_T:
+            cases["backward"] = (
                 lambda: gated_pool.pool_backward_finish(
                     *args, gated_pool.pool_backward_partials(
                         *args, a1t, dm)[0], dm),
                 lambda: gated_pool.pool_backward_finish_reference(
                     *args, gated_pool.pool_backward_partials_reference(
                         *args, a1t, dm)[0], dm),
-                pool_bwd_bound_ms(t, 3, 1))}
+                pool_bwd_bound_ms(t, 3, 1))
         for way, (kernel, plain, (bound, bound_by)) in cases.items():
             ms, how = device_ms(kernel, 200, match="gated_pool_")
             wrapper_ms = time_cuda(kernel, 200)
             plain_ms = time_cuda(plain, 100)
+            per_entry = {}
+            if way == "backward":
+                for entry, fn in (
+                        ("gated_pool_backward_partials",
+                         lambda: gated_pool.pool_backward_partials(
+                             *args, a1t, dm)),
+                        ("gated_pool_backward_finish",
+                         lambda: gated_pool.pool_backward_finish(
+                             *args, stats, dm))):
+                    e_ms, e_how = device_ms(fn, 200, match="gated_pool_bwd")
+                    require_one_launch(entry, t, e_how)
+                    per_entry[entry] = {"ms": e_ms, **ms_how(e_how)}
             rows[way][t] = {"ms": ms, **ms_how(how),
                             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": bound_by,
                             "bound_share": bound / ms}
             emit({"phase": "mesh_split_time", "entries": way, "T": t,
-                  "nblk": gated_pool.pool_partition(t)[0],
+                  "blocks": (gated_pool.pool_partition(t)[0]
+                             if way == "forward"
+                             else gated_pool.pool_bwd_partition(t)[0]),
                   "kernel_device_us": 1e3 * ms, **ms_how(how),
+                  "by_entry": per_entry,
                   "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
                   "bound_us": 1e3 * bound, "bound_by": bound_by,
                   "bound_share": bound / ms, "library_us": None, **card})
@@ -2919,6 +2995,9 @@ def main():
     build_s = time.perf_counter() - t0
     for kernel, text in _build.BUILD_LOG.items():
         log(f"nvcc {kernel}:\n{text.strip()}")
+    bwd_ptxas = ptxas_report(_build.BUILD_LOG["gated_pool"], "gated_pool_bwd")
+    emit({"phase": "ptxas_backward", "kernels": bwd_ptxas})
+    require_no_spill(bwd_ptxas)
     hmma = tensor_core_instructions(libs["u8_stem"])
     # the pool's library carries its forward and its backward
     entries = [gated_pool._kernel(e).__name__
@@ -3078,6 +3157,7 @@ def main():
         shutil.rmtree(CACHE, ignore_errors=True)
 
     t_main = POOL_TIMED_T[0]
+    t_bwd = max(TRAIN_POOL_T)  # the largest training bag's subsample
     print(f"{name}, {limit}", flush=True)
     emit({"kernels": [{
         "name": "gated_attention_pool", "route": "cuda",
@@ -3101,9 +3181,8 @@ def main():
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
         "launches": bwd_launches + bwd_profile, "max_abs_err": bwd_err,
-        **bwd_times[POOL_BWD_TIMED_T[0]], "library_ms": None,
-        "shape": {"T": POOL_BWD_TIMED_T[0], "K": 3, "O": 1,
-                  "cotangents": "dM"},
+        **bwd_times[t_bwd], "library_ms": None,
+        "shape": {"T": t_bwd, "K": 3, "O": 1, "cotangents": "dM"},
         "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
         "bound_share_by_T": {t: r["bound_share"]
                              for t, r in bwd_times.items()},

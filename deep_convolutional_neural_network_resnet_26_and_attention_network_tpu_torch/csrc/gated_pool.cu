@@ -37,9 +37,10 @@
 // groups of MAX_O so that any O works with the sums in registers; the main
 // path has O = 1.
 //
-// Backward (gated_pool_backward), given the forward's A1T and the cotangents
-// dM [K,O], dA1T [K,T], dwROIs [K,T] (each may be absent, a null pointer,
-// which counts as zero):
+// Backward (gated_pool_backward; replaces ops/pallas_pool.py:118 _pool_bwd),
+// given the forward's A1T and the cotangents dM [K,O], dA1T [K,T], dwROIs
+// [K,T] (each may be absent, a null pointer, which counts as zero and is
+// never read):
 //
 //   da1     = B dM^T + dA1T^T + dwROIs^T * B[:, 0]          [T, K]
 //   denom   = max(sum_T gated, 1e-12)   (recomputed; gated >= 0)
@@ -49,47 +50,96 @@
 //   dw      = sum_T(dgated act mask) (-10) g1 (1 - g1)
 //             + sum_T(dgated mask) 10 g0 (1 - g0)
 //
-// The mask gets no gradient. Bound: about 36 bytes a tile on the training
-// path (A_raw, B, mask, A1T in; dA_raw, dB out; K = 3, O = 1, dM only): 0.54
-// us at T = 50000, so again launches and the passes over T set the time.
-// Each map needs two sums over T before dA_raw can be written (denom and
-// sum da1 * A1) and two more after it (the dw sums). With one range
-// (nblk = 1) one launch does it all: block k makes its two passes over the
-// bag. Above one range the partial kernel writes each range's denom and
-// sum da1 * A1 to scratch [K, nblk, 2]; the middle kernel sums them in a
-// fixed order, writes dA_raw for its range and its range's two dw sums to a
-// second scratch [K, nblk, 2]; a one-block-per-map finish kernel sums those
-// in a fixed order and writes dw. dB needs no sum over T: the blocks of map 0
-// of the first launch write it for their ranges. No float atomics, so two
-// calls give bit-identical gradients.
+// The mask gets no gradient. Bound: 48 bytes a tile on the training path
+// (K = 3, O = 1, dM only: A_raw, B, mask and A1T in, dA_raw and dB out),
+// 0.72 us at T = 50000 and 7 ns at the training bags' T <= 500; the floor is
+// one launch, about 1 us. So the backward is bound by latency: the launch,
+// the loads each tile waits for, the exponentials, logarithms and
+// divisions of each tile, and the two sums over T that stand between the
+// loads and dA_raw (denom and sum da1 * A1 of each map) and between dA_raw
+// and dw (the two dw sums).
+//
+// Design (gated_pool_bwd_kernel): every entry is one launch of C blocks of
+// 512 threads; with C > 1 the C blocks are one thread-block cluster
+// (cudaLaunchKernelEx with a cluster dimension), and C = 1 is a plain
+// launch of the same kernel, whose cluster is its one block. Block r owns
+// tiles [r * tiles, min(T, (r + 1) * tiles)) for every map (the wrapper's
+// partition, ops/gated_pool.py:pool_bwd_partition, which keeps every bag
+// the training path pools on one block), one tile a thread a round.
+// - Phase 1. Each thread issues all of its tile's loads at once (the whole
+//   A_raw row, so that neighbouring threads read neighbouring rows; B, the
+//   mask, the A1T column, and dM once a pass), then computes everything no
+//   sum over T decides (softplus, expf(-A_raw), da1), writes its dB row and
+//   adds its terms to the pass's 2K + 1 sums: sum act * mask and sum da1 *
+//   A1 of each map, and sum mask (sum gated = g1 sum(act * mask) + g0
+//   sum(mask)). The math is staged across the maps (their exponentials,
+//   then their logarithms) so that the maps' chains overlap.
+// - The sums. Each warp reduce-scatters its sums (9 shuffles for 8 values)
+//   into shared memory; the block's last warp, its control warp, sums them
+//   over the warps in a fixed order. With C blocks its lanes publish the
+//   block's sums in the block's own shared memory, the cluster syncs, and
+//   they read the C blocks' sums through distributed shared memory in rank
+//   order 0..C-1, so every block holds the same totals with no scratch, no
+//   second launch and no float atomics. The control warp's lanes j < K
+//   own map j: they compute its gate (its loads issued first), 1 / denom
+//   and the table of the split entries, and hand them to the block through
+//   shared memory. A bag of at most 480 tiles a block leaves the control
+//   warp no tile, so its work runs beside the tile warps'.
+// - Phase 2. While the control warp reduces, the tile warps finish
+//   sigmoid(A_raw) (the divisions); then each writes dA_raw from the values
+//   it kept in registers (kHeld tiles a thread; a thread with more tiles
+//   reloads and recomputes them, from L2, which holds the whole input) and
+//   adds its terms to the two dw sums of each map, which reduce the same
+//   way except that the warps' sums are added over the warps and the
+//   cluster in double (see warp_partials); rank 0's owners write dw. With
+//   C > 1 a last cluster sync keeps each block's shared memory alive until
+//   its peers have read it.
+// Maps are taken kMapGroup at a time, each pass compiled for its exact map
+// count, so any K works with the values in registers; the main path has K
+// = 3. Every product and sum of the backward is written with explicit
+// round-to-nearest intrinsics, so the compiler fuses nothing by context: a
+// value recomputed in phase 2 (or in the split finish) has the bits of the
+// one kept in registers, and the three entries sum in one order.
 //
 // Split at the reduction (the multi-card mesh, ROADMAP B.1 (b)). When the
 // tile axis of a bag is split across ranks, the sums over T become sums
-// across ranks. The same kernels serve, cut where their passes meet:
+// across ranks. The forward's kernels serve, cut where their passes meet:
 // gated_pool_forward_partials returns a shard's [K, 1+O] sums (pass 1, then
 // gated_pool_reduce_kernel over its ranges), the caller all-reduces them,
-// and gated_pool_forward_finish runs pass 2 from the totals.
-// gated_pool_backward_partials and gated_pool_backward_finish do the same
-// with the backward's [K, 2] table (denom and sum da1 * A1); the finish
-// leaves the shard's part of dw, which the parameter all-reduce sums. The
-// tables are K * (1+O) and K * 2 floats, so an all-reduce moves a few
-// dozen bytes.
+// and gated_pool_forward_finish runs pass 2 from the totals. The backward's
+// kernel is cut the same way, one launch each: gated_pool_backward_partials
+// runs phase 1 (the shard's [K, 2] table of denom and sum da1 * A1, its dB)
+// and gated_pool_backward_finish phase 2 from the all-reduced table (dA_raw,
+// and the shard's part of dw, which the parameter all-reduce sums). With
+// the one-call entry's partition and code, a split call on a single shard
+// gives the one-call entry's outputs bit for bit. The tables are K * (1+O)
+// and K * 2 floats, so an all-reduce moves a few dozen bytes.
 //
 // C interface (loaded with ctypes): each entry returns cudaGetLastError()
-// after its launches, 0 on success.
+// after its launches, 0 on success; a backward entry returns kClusterUnfit
+// (-1) if no cluster of C blocks of its kernel fits on the card.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int MAX_O = 8;
 
+// softplus_f(x) from e = expf(-|x|), so that a caller can take the
+// exponentials of several values before their logarithms
+__device__ __forceinline__ float softplus_of_exp(float x, float e) {
+  return log1pf(e) + fmaxf(x, 0.0f);
+}
+
 __device__ __forceinline__ float softplus_f(float x) {
   // the form of jax.nn.softplus (logaddexp(x, 0)), with no threshold
-  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.0f);
+  return softplus_of_exp(x, expf(-fabsf(x)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -264,200 +314,570 @@ gated_pool_reduce_kernel(const float* __restrict__ scratch,
 
 // ------------------------------------------------------------- backward
 
-// The block's sums of v[0..N), in a fixed order; every thread gets them.
-template <int N>
-__device__ void block_sums(float (&v)[N]) {
-  __shared__ float partial[kWarps][N];
-  __shared__ float total[N];
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = warp_sum(v[j]);
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) partial[tid >> 5][j] = v[j];
-  }
-  __syncthreads();
-  if (tid < N) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) s += partial[i][tid];
-    total[tid] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = total[j];
-  __syncthreads();  // partial/total are reused by the next call
-}
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+// maps a pass over the tiles takes at once (a larger K takes more passes);
+// each pass is compiled for its exact map count, so a tile's maps are
+// straight-line code whose chains the scheduler interleaves
+constexpr int kMapGroup = 3;
+// Tiles a thread keeps in registers between phase 1 and phase 2: one tile
+// of 10 floats (da1, act and expf(-A_raw) of three maps, the mask). 512
+// threads may hold 128 registers each; with two tiles held (and their
+// loads in flight) ptxas spilled on the H100 build, and the spill cost
+// more than it saved. One tile a thread is 512 tiles a block, which covers
+// every bag the training path pools (T <= 500, one block); above that
+// phase 2 reloads and recomputes a thread's further tiles, whose inputs L2
+// holds (T = 50000 is 2.4 MB against its 50 MB).
+constexpr int kHeld = 1;
+constexpr int kMaxCluster = 16;
+constexpr int kClusterUnfit = -1;
 
-// The cotangents of (M, A1T, wROIs); a null pointer is a zero cotangent.
-struct Cotangents {
-  const float* dm;    // [K, O]
-  const float* da1t;  // [K, T]
-  const float* dwr;   // [K, T]
+enum BwdMode { kBoth = 0, kPartials = 1, kFinish = 2 };
 
-  // da1[t, k] = B[t] . dM[k] + dA1T[k, t] + dwROIs[k, t] * B[t, 0]
-  __device__ float da1(const float* __restrict__ b, int t, int T, int k,
-                       int O) const {
-    float v = 0.0f;
-    if (dm != nullptr) {
-      const float* brow = b + (size_t)t * O;
-      const float* dmk = dm + (size_t)k * O;
-      for (int o = 0; o < O; ++o) v += brow[o] * dmk[o];
-    }
-    if (da1t != nullptr) v += da1t[(size_t)k * T + t];
-    if (dwr != nullptr) v += dwr[(size_t)k * T + t] * b[(size_t)t * O];
-    return v;
-  }
+struct BwdArgs {
+  const float* a_raw;   // [T, K]
+  const float* b;       // [T, O]
+  const float* mask;    // [T]
+  const float* w;       // [K]
+  const float* a1t;     // [K, T]; null in the finish
+  const float* dm;      // [K, O], may be null
+  const float* da1t;    // [K, T], may be null
+  const float* dwr;     // [K, T], may be null
+  const float* totals;  // [K, 2], the finish's all-reduced sums
+  float* da_raw;        // [T, K]
+  float* db;            // [T, O]
+  float* dw;            // [K]
+  float* stats;         // [K, 2], the partials' output
+  int T, K, O, tiles, mode;
 };
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// sigmoid(x) = 1 / (1 + expf(-x)) from en = expf(-x), as softplus_of_exp
+__device__ __forceinline__ float sigmoid_of_exp(float en) {
+  return 1.0f / (1.0f + en);
 }
 
 // dw[k] from the two sums over T of dgated * act * mask and dgated * mask
-__device__ __forceinline__ float gate_grad(const Gate& g, float p_act,
-                                           float p_mask) {
-  return p_act * (-10.0f) * g.g1 * (1.0f - g.g1) +
-         p_mask * 10.0f * g.g0 * (1.0f - g.g0);
+// (doubles; see warp_partials)
+__device__ __forceinline__ float gate_grad(float g1, float g0, double p_act,
+                                           double p_mask) {
+  const double a = g1, b = g0;
+  return static_cast<float>(p_act * (-10.0) * a * (1.0 - a) +
+                            p_mask * 10.0 * b * (1.0 - b));
 }
 
-// The sums over [t0, t1) of map k that dgated needs: gated (p[0]) and
-// da1 * A1 (p[1]).
-__device__ void range_stats(const float* __restrict__ a_raw,
-                            const float* __restrict__ b,
-                            const float* __restrict__ mask,
-                            const float* __restrict__ a1t,
-                            const Cotangents& cot, const Gate& gate, int t0,
-                            int t1, int T, int K, int k, int O,
-                            float (&p)[2]) {
-  const float* a1_row = a1t + (size_t)k * T;
-  p[0] = 0.0f;
-  p[1] = 0.0f;
-#pragma unroll 4
-  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
-    p[0] += gate(a_raw, mask, t, K, k);
-    p[1] += cot.da1(b, t, T, k, O) * a1_row[t];
+// What phase 2 needs of one tile for the NK maps of a pass; no sum over T
+// decides any of it. en = expf(-A_raw), the sigmoid's exponential: the
+// division that finishes sigmoid(A_raw) waits for phase 2 (tile_sig).
+template <int NK>
+struct TileVals {
+  float da1[NK];
+  float act[NK];
+  float en[NK];
+  float m;
+};
+
+// One tile's loads for maps k0 .. k0 + NK - 1: the A_raw row, the mask, and
+// da1[t, k] = B[t] . dM[k] + dA1T[k, t] + dwROIs[k, t] * B[t, 0]; with
+// kA1, also A1T's column (for phase 1). Every load is issued before the
+// first value is used, so a tile waits for memory once.
+template <int NK>
+struct TileLoads {
+  float x[NK], da1[NK], a1[NK];
+  float m;
+};
+
+template <int NK, bool kA1>
+__device__ __forceinline__ void tile_loads(const BwdArgs& a, int t, int k0,
+                                           const float (&dm0)[NK],
+                                           TileLoads<NK>& l) {
+  const float* row = a.a_raw + (size_t)t * a.K + k0;
+  const float* brow = a.b + (size_t)t * a.O;
+  float dt[NK], wr[NK];
+  l.m = __ldg(a.mask + t);
+  const float b0 = __ldg(brow);
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const size_t kt = (size_t)(k0 + j) * a.T + t;
+    l.x[j] = __ldg(row + j);
+    l.a1[j] = kA1 ? __ldg(a.a1t + kt) : 0.0f;
+    dt[j] = a.da1t != nullptr ? __ldg(a.da1t + kt) : 0.0f;
+    wr[j] = a.dwr != nullptr ? __ldg(a.dwr + kt) : 0.0f;
   }
-  block_sums(p);
-}
-
-// dA_raw for tiles [t0, t1) of map k, and the range's dw sums: dgated * act
-// * mask (p[0]) and dgated * mask (p[1]), reduced over the block.
-__device__ void range_grads(const float* __restrict__ a_raw,
-                            const float* __restrict__ b,
-                            const float* __restrict__ mask,
-                            const Cotangents& cot, const Gate& gate,
-                            float denom, float s_da1_a1, int t0, int t1,
-                            int T, int K, int k, int O,
-                            float* __restrict__ da_raw, float (&p)[2]) {
-  p[0] = 0.0f;
-  p[1] = 0.0f;
-#pragma unroll 4
-  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
-    const float x = a_raw[(size_t)t * K + k];
-    const float m = mask[t];
-    const float dgated = (cot.da1(b, t, T, k, O) - s_da1_a1) / denom;
-    da_raw[(size_t)t * K + k] = dgated * gate.g1 * m * sigmoid_f(x);
-    p[0] += dgated * softplus_f(x) * m;
-    p[1] += dgated * m;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    float v = 0.0f;
+    if (a.dm != nullptr) {
+      const float* dmk = a.dm + (size_t)(k0 + j) * a.O;
+      v = __fmul_rn(b0, dm0[j]);
+#pragma unroll 1
+      for (int o = 1; o < a.O; ++o)
+        v = __fmaf_rn(__ldg(brow + o), __ldg(dmk + o), v);
+    }
+    if (a.da1t != nullptr) v = __fadd_rn(v, dt[j]);
+    if (a.dwr != nullptr) v = __fmaf_rn(wr[j], b0, v);
+    l.da1[j] = v;
   }
-  block_sums(p);
 }
 
-// dB for tiles [t0, t1): A1 dM, plus sum_K dwROIs^T * A1 in column 0
-__device__ void write_db(const float* __restrict__ a1t, const Cotangents& cot,
-                         int t0, int t1, int T, int K, int O,
-                         float* __restrict__ db) {
-  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
-    for (int o = 0; o < O; ++o) {
-      float v = 0.0f;
-      if (cot.dm != nullptr)
-        for (int k = 0; k < K; ++k)
-          v += a1t[(size_t)k * T + t] * cot.dm[(size_t)k * O + o];
-      if (o == 0 && cot.dwr != nullptr) {
-        float u = 0.0f;
-        for (int k = 0; k < K; ++k)
-          u += cot.dwr[(size_t)k * T + t] * a1t[(size_t)k * T + t];
-        v += u;
-      }
-      db[(size_t)t * O + o] = v;
+// act = softplus_f(x) of the NK maps and the sigmoid's exponential, their
+// steps taken a stage at a time across the maps (the exponentials, then
+// the logarithms), so that the maps' chains overlap
+template <int NK>
+__device__ __forceinline__ void tile_vals(const TileLoads<NK>& l,
+                                          TileVals<NK>& v) {
+  float e[NK];
+  v.m = l.m;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    e[j] = expf(-fabsf(l.x[j]));
+    v.en[j] = expf(-l.x[j]);
+    v.da1[j] = l.da1[j];
+  }
+#pragma unroll
+  for (int j = 0; j < NK; ++j) v.act[j] = softplus_of_exp(l.x[j], e[j]);
+}
+
+// sigmoid(A_raw) of the NK maps from the tile's exponentials. Its
+// divisions (each with a slow-path branch that ends the compiler's
+// scheduling block) run after phase 1, where the tile warps wait for the
+// control warp's totals anyway.
+template <int NK>
+__device__ __forceinline__ void tile_sig(const TileVals<NK>& v,
+                                         float (&sig)[NK]) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) sig[j] = sigmoid_of_exp(v.en[j]);
+}
+
+// Phase 1 for tile t from its loads: its values (into v), its terms of the
+// pass's sums (s[j] += act * mask, s[NK + j] += da1 * A1 of map j, and
+// s[2 NK] += mask; sum gated = g1 sum(act * mask) + g0 sum(mask)), counted
+// only if `live`, and, if `live`, this pass's terms of its dB row, added
+// to the earlier passes' (A1 dM, plus sum_K dwROIs^T * A1 in column 0)
+template <int NK>
+__device__ __forceinline__ void phase1_tile(const BwdArgs& a, int t, int k0,
+                                            bool live,
+                                            const TileLoads<NK>& l,
+                                            const float (&dm0)[NK],
+                                            TileVals<NK>& v,
+                                            float (&s)[2 * NK + 1]) {
+  tile_vals(l, v);
+  const float m = live ? v.m : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    s[j] = __fmaf_rn(v.act[j], m, s[j]);
+    s[NK + j] = __fmaf_rn(live ? v.da1[j] : 0.0f, l.a1[j], s[NK + j]);
+  }
+  s[2 * NK] = __fadd_rn(s[2 * NK], m);
+  if (!live) return;
+#pragma unroll 1
+  for (int o = 0; o < a.O; ++o) {
+    float* dst = a.db + (size_t)t * a.O + o;
+    float d = k0 == 0 ? 0.0f : *dst;
+    if (a.dm != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        d = __fmaf_rn(l.a1[j],
+                      o == 0 ? dm0[j]
+                             : __ldg(a.dm + (size_t)(k0 + j) * a.O + o),
+                      d);
+    }
+    if (o == 0 && a.dwr != nullptr) {
+      float u = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        u = __fmaf_rn(__ldg(a.dwr + (size_t)(k0 + j) * a.T + t), l.a1[j], u);
+      d = __fadd_rn(d, u);
+    }
+    *dst = d;
+  }
+}
+
+// Phase 2 for tile t, if `live`: dA_raw from the totals (sum da1 * A1 in
+// `sda`, 1 / denom in `inv`), and its terms of sum dgated * act * mask
+// (p[j]) and sum dgated * mask (p[NK + j])
+template <int NK>
+__device__ __forceinline__ void phase2_tile(const BwdArgs& a, int t, int k0,
+                                            bool live, const TileVals<NK>& v,
+                                            const float (&sig)[NK],
+                                            const float (&g1)[NK],
+                                            const float (&sda)[NK],
+                                            const float (&inv)[NK],
+                                            float (&p)[2 * NK]) {
+  float dga[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    // dgated * mask, dgated = (da1 - sum da1 * A1) / denom
+    const float dgm =
+        __fmul_rn(__fmul_rn(__fsub_rn(v.da1[j], sda[j]), inv[j]), v.m);
+    const float d = live ? dgm : 0.0f;
+    dga[j] = __fmul_rn(__fmul_rn(d, g1[j]), sig[j]);
+    p[j] = __fmaf_rn(d, v.act[j], p[j]);
+    p[NK + j] = __fadd_rn(p[NK + j], d);
+  }
+  if (live) {
+    float* out = a.da_raw + (size_t)t * a.K + k0;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) out[j] = dga[j];
+  }
+}
+
+// The warp's sums of v[0..N), N <= kSlots, as a reduce-scatter: at each
+// step a lane sends its partner the half of its values it does not keep,
+// so lane l ends with the warp's sum of v[l >> 2] (kSlots = 8 values in 9
+// shuffles, where a shuffle tree per value takes 40), in a fixed order.
+constexpr int kSlots = 8;
+
+template <int N>
+__device__ __forceinline__ float warp_scatter_sum(const float (&v)[N]) {
+  const unsigned int full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float x[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) x[i] = i < N ? v[i] : 0.0f;
+  float y[4], z[2];
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    y[i] = (h16 ? x[4 + i] : x[i]) +
+           __shfl_xor_sync(full, h16 ? x[i] : x[4 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    z[i] = (h8 ? y[2 + i] : y[i]) +
+           __shfl_xor_sync(full, h8 ? y[i] : y[2 + i], 8);
+  float w = (h4 ? z[1] : z[0]) + __shfl_xor_sync(full, h4 ? z[0] : z[1], 4);
+  w += __shfl_xor_sync(full, w, 2);
+  w += __shfl_xor_sync(full, w, 1);
+  return w;
+}
+
+// The block's part of a reduction: each warp's sums of v[0..N) into its
+// row of `partial` (a warp with no tile writes its zeros unshuffled), then
+// a block barrier. The rows are floats (R) for phase 1's sums and doubles
+// for phase 2's: dw is the difference of those two sums, whose terms cancel
+// to a small fraction of their magnitudes, and with float rows dw was
+// 1.2e-5 of max|dw| from the plain version in float64 at T = 3585 (the
+// float32 plain version 1.0e-6) on an H100, with double rows 4.8e-6 at
+// worst over chip_smoke.py's cases (the float32 plain version 2.3e-6).
+template <int N, typename R>
+__device__ __forceinline__ void warp_partials(const float (&v)[N],
+                                              bool live_warp,
+                                              R (*partial)[kSlots]) {
+  const int lane = threadIdx.x & 31;
+  const float w = live_warp ? warp_scatter_sum(v) : 0.0f;
+  if ((lane & 3) == 0 && (lane >> 2) < N)
+    partial[threadIdx.x >> 5][lane >> 2] = w;
+  __syncthreads();
+}
+
+// After warp_partials, in the control warp (every lane calls it): lane
+// i < N returns the cluster's sum of slot i. Lane i first sums slot i over
+// the block's warps (four runs of four warps, then the runs, in a fixed
+// order). With C blocks, lanes i < N publish the block's sums in `pub`
+// (this block's shared memory) before the cluster sync that the block's
+// other warps meet in cluster_sync_others, then read the C blocks' sums of
+// slot i in rank order 0..C-1 through distributed shared memory. A pass
+// reduces twice, into two buffers (the phase-1 floats, the phase-2
+// doubles), and passes alternate between two pairs of them: a block
+// rewrites a buffer only after a later cluster sync, which its peers reach
+// once they have read it.
+template <int N, typename R>
+__device__ __forceinline__ R control_totals(const R (*partial)[kSlots], R* pub,
+                                            unsigned int n) {
+  static_assert(kBwdWarps == 16, "four runs of four warps");
+  const int lane = threadIdx.x & 31;
+  R s = R(0);
+  if (lane < N) {
+    R x[kBwdWarps];
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) x[w] = partial[w][lane];
+    R run[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      run[r] = ((x[4 * r] + x[4 * r + 1]) + x[4 * r + 2]) + x[4 * r + 3];
+    s = (run[0] + run[1]) + (run[2] + run[3]);
+  }
+  if (n == 1) return s;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (lane < N) pub[lane] = s;
+  cluster.sync();
+  if (lane < N) {
+    // the peers' values four at a time in flight, summed in rank order
+    s = *cluster.map_shared_rank(pub + lane, 0);
+#pragma unroll 1
+    for (int r0 = 1; r0 < (int)n; r0 += 4) {
+      R peer[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        peer[i] = r0 + i < (int)n
+                      ? *cluster.map_shared_rank(pub + lane, r0 + i)
+                      : R(0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r0 + i < (int)n) s += peer[i];
     }
   }
+  return s;
 }
 
-// Launch 1 over range blockIdx.x of map blockIdx.y. With `finish` (the
-// one-call entry with one range) it finishes the map: dA_raw and dw[k].
-// Otherwise it writes the range's denom and sum da1 * A1 to
-// scratch[k][j][0..1]. The blocks of map 0 write dB for their range.
-__global__ void __launch_bounds__(kThreads)
-gated_pool_bwd_partial_kernel(const float* __restrict__ a_raw,
-                              const float* __restrict__ b,
-                              const float* __restrict__ mask,
-                              const float* __restrict__ w,
-                              const float* __restrict__ a1t, Cotangents cot,
-                              float* __restrict__ da_raw,
-                              float* __restrict__ db, float* __restrict__ dw,
-                              float* __restrict__ scratch, int T, int K, int O,
-                              int range, int finish) {
-  const int j = blockIdx.x;
-  const int k = blockIdx.y;
-  const int nblk = gridDim.x;
-  const int t0 = j * range;
-  const int t1 = min(T, t0 + range);
-  const Gate gate(w[k]);
-  float s[2];
-  range_stats(a_raw, b, mask, a1t, cot, gate, t0, t1, T, K, k, O, s);
-  if (finish) {
-    float p[2];
-    range_grads(a_raw, b, mask, cot, gate, fmaxf(s[0], 1e-12f), s[1], t0, t1,
-                T, K, k, O, da_raw, p);
-    if (threadIdx.x == 0) dw[k] = gate_grad(gate, p[0], p[1]);
-  } else if (threadIdx.x == 0) {
-    float* dst = scratch + ((size_t)k * nblk + j) * 2;
-    dst[0] = s[0];
-    dst[1] = s[1];
+// The cluster sync of control_totals, for the block's other warps
+__device__ __forceinline__ void cluster_sync_others(unsigned int n) {
+  if (n > 1) cg::this_cluster().sync();
+}
+
+// The shared memory of the reductions (see control_totals)
+struct Reduction {
+  float partial_f[2][kBwdWarps][kSlots];
+  double partial_d[2][kBwdWarps][kSlots];
+  float pub_f[2][kSlots];
+  double pub_d[2][kSlots];
+};
+
+// Per-map scalars shared through shared memory: the control warp's lane
+// j < NK computes map j's and the block reads them after a barrier
+struct MapScalars {
+  float g1[kMapGroup], sda[kMapGroup], inv[kMapGroup];
+};
+
+// One pass over the block's tiles [t0, t1) for maps k0 .. k0 + NK - 1.
+// Every load of the held tiles (clamped to the last tile, so that every
+// load is in range and no thread branches on its own tile) and of the
+// owners' scalars is issued before any value is used. `pass` numbers the
+// passes (see control_totals). The block's last warp is its control
+// warp: its lanes j < NK own map k0 + j's scalars (the gate, the totals,
+// rank 0's writes); a bag of at most 480 tiles a block leaves it no tile,
+// so that its work runs beside the tiles'.
+template <int NK>
+__device__ __forceinline__ void bwd_pass(const BwdArgs& a, int k0, int rank,
+                                         unsigned int n, int t0, int t1,
+                                         Reduction& red, MapScalars& ms,
+                                         int pass) {
+  const unsigned int full = 0xffffffffu;
+  const int tid = threadIdx.x;
+  const bool control = (tid >> 5) == kBwdWarps - 1;
+  // block-uniform: the rounds of kBwdThreads tiles the block takes
+  const int rounds = (t1 - t0 + kBwdThreads - 1) / kBwdThreads;
+  // warp-uniform: the warp's first tile of a round; a warp with no tile in
+  // a round skips it, and its lanes past t1 take the last tile's loads
+  const int warp_t0 = t0 + (tid & ~31);
+  const bool live_warp = warp_t0 < t1;
+  // the rounds in which the warp has a tile
+  const int warp_rounds =
+      live_warp ? min(rounds, (t1 - warp_t0 + kBwdThreads - 1) / kBwdThreads)
+                : 0;
+  const bool owner = control && (tid & 31) < NK;
+  const int j_own = owner ? (tid & 31) : 0;
+  const bool phase1 = a.mode != kFinish;
+  // the owners' loads first: they wait for nothing else
+  float w_own = 0.0f, tot_own[2] = {0.0f, 0.0f};
+  if (owner) {
+    w_own = __ldg(a.w + k0 + j_own);
+    if (!phase1) {
+      tot_own[0] = __ldg(a.totals + 2 * (k0 + j_own));
+      tot_own[1] = __ldg(a.totals + 2 * (k0 + j_own) + 1);
+    }
   }
-  if (k == 0) write_db(a1t, cot, t0, t1, T, K, O, db);
-}
-
-// Launch 2: denom and sum da1 * A1 from the n_part rows of partials of map k
-// (the nblk ranges' in the one-call entry, one row of totals in the split
-// one), dA_raw for the range, and the range's dw sums into
-// dw_scratch[k][j][0..1].
-__global__ void __launch_bounds__(kThreads)
-gated_pool_bwd_middle_kernel(const float* __restrict__ a_raw,
-                             const float* __restrict__ b,
-                             const float* __restrict__ mask,
-                             const float* __restrict__ w, Cotangents cot,
-                             float* __restrict__ da_raw,
-                             const float* __restrict__ scratch,
-                             float* __restrict__ dw_scratch, int T, int K,
-                             int O, int range, int n_part) {
-  const int j = blockIdx.x;
-  const int k = blockIdx.y;
-  const int nblk = gridDim.x;
-  const float denom = fmaxf(sum_partials(scratch, k, n_part, 2, 0), 1e-12f);
-  const float s_da1_a1 = sum_partials(scratch, k, n_part, 2, 1);
-  const int t0 = j * range;
-  float p[2];
-  range_grads(a_raw, b, mask, cot, Gate(w[k]), denom, s_da1_a1, t0,
-              min(T, t0 + range), T, K, k, O, da_raw, p);
-  if (threadIdx.x == 0) {
-    float* dst = dw_scratch + ((size_t)k * nblk + j) * 2;
-    dst[0] = p[0];
-    dst[1] = p[1];
+  float dm0[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+    dm0[j] = a.dm != nullptr ? __ldg(a.dm + (size_t)(k0 + j) * a.O) : 0.0f;
+  TileLoads<NK> ld[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int t = min(t0 + tid + i * kBwdThreads, t1 - 1);
+    if (i < warp_rounds) {
+      if (phase1)
+        tile_loads<NK, true>(a, t, k0, dm0, ld[i]);
+      else
+        tile_loads<NK, false>(a, t, k0, dm0, ld[i]);
+    }
+  }
+  TileVals<NK> held[kHeld];
+  float sig[kHeld][NK];  // the held tiles' sigmoid(A_raw)
+  float gate_g1 = 0.0f, gate_g0 = 0.0f;  // the owner's gate sigmoids
+  if (owner) {
+    const Gate gate(w_own);
+    gate_g1 = gate.g1;
+    gate_g0 = gate.g0;
+  }
+  if (phase1) {
+    float s[2 * NK + 1];
+#pragma unroll
+    for (int j = 0; j <= 2 * NK; ++j) s[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int t = t0 + tid + i * kBwdThreads;
+      if (i < warp_rounds)
+        phase1_tile(a, t, k0, t < t1, ld[i], dm0, held[i], s);
+    }
+#pragma unroll 1
+    for (int i = kHeld; i < warp_rounds; ++i) {
+      const int t = t0 + tid + i * kBwdThreads;
+      TileLoads<NK> l;
+      TileVals<NK> v;
+      tile_loads<NK, true>(a, min(t, t1 - 1), k0, dm0, l);
+      phase1_tile(a, t, k0, t < t1, l, dm0, v, s);
+    }
+    warp_partials(s, live_warp, red.partial_f[pass & 1]);
+    // the owner of map j: sum act * mask, sum da1 * A1, sum mask
+    if (control) {
+      const float c = control_totals<2 * NK + 1>(red.partial_f[pass & 1],
+                                                 red.pub_f[pass & 1], n);
+      const float act_m = __shfl_sync(full, c, j_own);
+      const float da1_a1 = __shfl_sync(full, c, NK + j_own);
+      const float m_sum = __shfl_sync(full, c, 2 * NK);
+      const float gsum =  // sum gated
+          __fmaf_rn(gate_g1, act_m, __fmul_rn(gate_g0, m_sum));
+      if (owner && a.mode == kPartials && rank == 0) {
+        a.stats[(size_t)(k0 + j_own) * 2] = gsum;
+        a.stats[(size_t)(k0 + j_own) * 2 + 1] = da1_a1;
+      }
+      if (owner) {
+        ms.g1[j_own] = gate_g1;
+        ms.sda[j_own] = da1_a1;
+        ms.inv[j_own] = 1.0f / fmaxf(gsum, 1e-12f);
+      }
+    } else {
+      cluster_sync_others(n);
+    }
+    if (a.mode == kPartials) return;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (i < warp_rounds) tile_vals(ld[i], held[i]);
+    if (owner) {
+      ms.g1[j_own] = gate_g1;
+      ms.sda[j_own] = tot_own[1];
+      ms.inv[j_own] = 1.0f / fmaxf(tot_own[0], 1e-12f);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i)
+    if (i < warp_rounds) tile_sig(held[i], sig[i]);
+  __syncthreads();  // ms
+  float g1[NK], sda[NK], inv[NK], p[2 * NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    g1[j] = ms.g1[j];
+    sda[j] = ms.sda[j];
+    inv[j] = ms.inv[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j) p[j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int t = t0 + tid + i * kBwdThreads;
+    if (i < warp_rounds)
+      phase2_tile(a, t, k0, t < t1, held[i], sig[i], g1, sda, inv, p);
+  }
+#pragma unroll 1
+  for (int i = kHeld; i < warp_rounds; ++i) {
+    const int t = t0 + tid + i * kBwdThreads;
+    TileLoads<NK> l;
+    TileVals<NK> v;
+    float sg[NK];
+    tile_loads<NK, false>(a, min(t, t1 - 1), k0, dm0, l);
+    tile_vals(l, v);
+    tile_sig(v, sg);
+    phase2_tile(a, t, k0, t < t1, v, sg, g1, sda, inv, p);
+  }
+  warp_partials(p, live_warp, red.partial_d[pass & 1]);
+  // rank 0's owner of map j: sum dgated * act * mask, sum dgated * mask
+  if (control) {
+    const double c = control_totals<2 * NK>(red.partial_d[pass & 1],
+                                            red.pub_d[pass & 1], n);
+    const double p_act = __shfl_sync(full, c, j_own);
+    const double p_mask = __shfl_sync(full, c, NK + j_own);
+    if (owner && rank == 0)
+      a.dw[k0 + j_own] = gate_grad(gate_g1, gate_g0, p_act, p_mask);
+  } else {
+    cluster_sync_others(n);
   }
 }
 
-// Launch 3, one block per map: dw[k] from the ranges' dw sums.
-__global__ void __launch_bounds__(kThreads)
-gated_pool_bwd_finish_kernel(const float* __restrict__ w,
-                             const float* __restrict__ dw_scratch,
-                             float* __restrict__ dw, int nblk) {
-  const int k = blockIdx.x;
-  const float p_act = sum_partials(dw_scratch, k, nblk, 2, 0);
-  const float p_mask = sum_partials(dw_scratch, k, nblk, 2, 1);
-  if (threadIdx.x == 0) dw[k] = gate_grad(Gate(w[k]), p_act, p_mask);
+// One launch, one cluster: see the note at the top. `mode` picks the entry:
+// both phases (the one-call entry), phase 1 (the split partials) or phase
+// 2 from the all-reduced totals (the split finish).
+__global__ void __launch_bounds__(kBwdThreads, 1)
+gated_pool_bwd_kernel(const BwdArgs a) {
+  __shared__ Reduction red;
+  __shared__ MapScalars ms;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int n = cluster.num_blocks();
+  const int rank = cluster.block_rank();  // the grid is one cluster
+  const int t0 = rank * a.tiles;
+  const int t1 = min(a.T, t0 + a.tiles);
+  for (int k0 = 0, pass = 0; k0 < a.K; k0 += kMapGroup, ++pass) {
+    switch (min(kMapGroup, a.K - k0)) {
+      case 1: bwd_pass<1>(a, k0, rank, n, t0, t1, red, ms, pass); break;
+      case 2: bwd_pass<2>(a, k0, rank, n, t0, t1, red, ms, pass); break;
+      default: bwd_pass<3>(a, k0, rank, n, t0, t1, red, ms, pass);
+    }
+  }
+  if (n > 1) cluster.sync();  // peers may still be reading this block's pub
+}
+
+// Launch gated_pool_bwd_kernel as one cluster of C blocks. The first launch
+// of each C checks that such a cluster fits on the card
+// (cudaOccupancyMaxActiveClusters), and refuses with kClusterUnfit if none
+// does; C is never shrunk to fit. C above 8 is a non-portable cluster size.
+int launch_bwd(const BwdArgs& args, int C, void* stream) {
+  static bool fits[kMaxCluster + 1] = {};
+  if (C < 1 || C > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (!fits[C]) {
+    if (C > 8) {
+      err = cudaFuncSetAttribute(gated_pool_bwd_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, gated_pool_bwd_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n < 1) return kClusterUnfit;
+    fits[C] = true;
+  }
+  if (C == 1) {
+    // one block: a plain launch (a cluster launch of one block costs about
+    // 1.4 us more on the H100)
+    gated_pool_bwd_kernel<<<1, kBwdThreads, 0, cfg.stream>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = cudaLaunchKernelEx(&cfg, gated_pool_bwd_kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BwdArgs bwd_args(const void* a_raw, const void* b, const void* mask,
+                 const void* w, const void* dm, const void* da1t,
+                 const void* dwr, int T, int K, int O, int tiles, int mode) {
+  BwdArgs a = {};
+  a.a_raw = static_cast<const float*>(a_raw);
+  a.b = static_cast<const float*>(b);
+  a.mask = static_cast<const float*>(mask);
+  a.w = static_cast<const float*>(w);
+  a.dm = static_cast<const float*>(dm);
+  a.da1t = static_cast<const float*>(da1t);
+  a.dwr = static_cast<const float*>(dwr);
+  a.T = T;
+  a.K = K;
+  a.O = O;
+  a.tiles = tiles;
+  a.mode = mode;
+  return a;
 }
 
 }  // namespace
@@ -486,40 +906,22 @@ extern "C" int gated_pool_forward(const void* a_raw, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: 4 * K * nblk floats when nblk > 1 (unused otherwise); dm, da1t
-// and dwr may be null.
+// da1t and dwr may be null, dm too; each is then a zero cotangent. One
+// launch of C blocks, each owning `tiles` tiles (pool_bwd_partition).
 extern "C" int gated_pool_backward(const void* a_raw, const void* b,
                                    const void* mask, const void* w,
                                    const void* a1t, const void* dm,
                                    const void* da1t, const void* dwr,
-                                   void* da_raw, void* db, void* dw,
-                                   void* scratch, int T, int K, int O,
-                                   int range, int nblk, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nblk, K);
-  const Cotangents cot{static_cast<const float*>(dm),
-                       static_cast<const float*>(da1t),
-                       static_cast<const float*>(dwr)};
-  const float* a = static_cast<const float*>(a_raw);
-  const float* bb = static_cast<const float*>(b);
-  const float* mk = static_cast<const float*>(mask);
-  const float* ww = static_cast<const float*>(w);
-  float* stats = static_cast<float*>(scratch);
-  float* dw_stats = stats == nullptr ? nullptr : stats + (size_t)2 * K * nblk;
-  gated_pool_bwd_partial_kernel<<<grid, kThreads, 0, s>>>(
-      a, bb, mk, ww, static_cast<const float*>(a1t), cot,
-      static_cast<float*>(da_raw), static_cast<float*>(db),
-      static_cast<float*>(dw), stats, T, K, O, range, nblk == 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
-  gated_pool_bwd_middle_kernel<<<grid, kThreads, 0, s>>>(
-      a, bb, mk, ww, cot, static_cast<float*>(da_raw), stats, dw_stats, T, K,
-      O, range, nblk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gated_pool_bwd_finish_kernel<<<K, kThreads, 0, s>>>(
-      ww, dw_stats, static_cast<float*>(dw), nblk);
-  return static_cast<int>(cudaGetLastError());
+                                   void* da_raw, void* db, void* dw, int T,
+                                   int K, int O, int tiles, int C,
+                                   void* stream) {
+  BwdArgs a = bwd_args(a_raw, b, mask, w, dm, da1t, dwr, T, K, O, tiles,
+                       kBoth);
+  a.a1t = static_cast<const float*>(a1t);
+  a.da_raw = static_cast<float*>(da_raw);
+  a.db = static_cast<float*>(db);
+  a.dw = static_cast<float*>(dw);
+  return launch_bwd(a, C, stream);
 }
 
 // ------------------------------------------------- split at the reduction
@@ -528,9 +930,10 @@ extern "C" int gated_pool_backward(const void* a_raw, const void* b,
 // at the sums over T. A bag whose tile axis is split across ranks
 // (parallel/mesh.py) calls the partials entry on its shard, all-reduces the
 // small table it returns across the ranks, and calls the finish entry with
-// the totals. The ranges of a shard are summed in sum_partials' fixed order
-// (gated_pool_reduce_kernel), as the one-call entries sum them, so a split
-// call on a single shard gives the one-call entry's outputs bit for bit.
+// the totals. The forward's partials sum a shard's ranges in sum_partials'
+// fixed order (gated_pool_reduce_kernel), the backward's in the cluster's,
+// as the one-call entries sum them, so a split call on a single shard gives
+// the one-call entry's outputs bit for bit.
 
 // partials [K, 1+O] = (sum_T gated, sum_T gated * B[:, o]) over this shard;
 // scratch: K * nblk * (1+O) floats when nblk > 1 (unused otherwise).
@@ -571,52 +974,34 @@ extern "C" int gated_pool_forward_finish(const void* a_raw, const void* b,
 }
 
 // stats [K, 2] = (sum_T gated, sum_T da1 * A1) over this shard, and this
-// shard's dB rows (no sum over T). scratch: 2 * K * nblk floats when
-// nblk > 1. dm is the cotangent of the replicated M, the same on every
-// rank; da1t and dwr are this shard's columns. Each may be null.
+// shard's dB rows (no sum over T), in one launch. dm is the cotangent of
+// the replicated M, the same on every rank; da1t and dwr are this shard's
+// columns. Each may be null.
 extern "C" int gated_pool_backward_partials(
     const void* a_raw, const void* b, const void* mask, const void* w,
     const void* a1t, const void* dm, const void* da1t, const void* dwr,
-    void* db, void* stats, void* scratch, int T, int K, int O, int range,
-    int nblk, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Cotangents cot{static_cast<const float*>(dm),
-                       static_cast<const float*>(da1t),
-                       static_cast<const float*>(dwr)};
-  float* out = static_cast<float*>(stats);
-  float* rows = nblk == 1 ? out : static_cast<float*>(scratch);
-  gated_pool_bwd_partial_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), static_cast<const float*>(w),
-      static_cast<const float*>(a1t), cot, nullptr, static_cast<float*>(db),
-      nullptr, rows, T, K, O, range, 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
-  gated_pool_reduce_kernel<<<K, kThreads, 0, s>>>(rows, out, nblk, 2);
-  return static_cast<int>(cudaGetLastError());
+    void* db, void* stats, int T, int K, int O, int tiles, int C,
+    void* stream) {
+  BwdArgs a = bwd_args(a_raw, b, mask, w, dm, da1t, dwr, T, K, O, tiles,
+                       kPartials);
+  a.a1t = static_cast<const float*>(a1t);
+  a.db = static_cast<float*>(db);
+  a.stats = static_cast<float*>(stats);
+  return launch_bwd(a, C, stream);
 }
 
-// From the all-reduced stats [K, 2]: this shard's dA_raw rows and its part
-// of dw (linear in the shard's sums, so the ranks' parts add up to dw).
-// dw_scratch: 2 * K * nblk floats.
+// From the all-reduced stats [K, 2], in one launch: this shard's dA_raw
+// rows and its part of dw (linear in the shard's sums, so the ranks' parts
+// add up to dw).
 extern "C" int gated_pool_backward_finish(
     const void* a_raw, const void* b, const void* mask, const void* w,
     const void* dm, const void* da1t, const void* dwr, const void* totals,
-    void* da_raw, void* dw, void* dw_scratch, int T, int K, int O, int range,
-    int nblk, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Cotangents cot{static_cast<const float*>(dm),
-                       static_cast<const float*>(da1t),
-                       static_cast<const float*>(dwr)};
-  const float* ww = static_cast<const float*>(w);
-  float* dw_rows = static_cast<float*>(dw_scratch);
-  gated_pool_bwd_middle_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), ww, cot, static_cast<float*>(da_raw),
-      static_cast<const float*>(totals), dw_rows, T, K, O, range, 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gated_pool_bwd_finish_kernel<<<K, kThreads, 0, s>>>(
-      ww, dw_rows, static_cast<float*>(dw), nblk);
-  return static_cast<int>(cudaGetLastError());
+    void* da_raw, void* dw, int T, int K, int O, int tiles, int C,
+    void* stream) {
+  BwdArgs a = bwd_args(a_raw, b, mask, w, dm, da1t, dwr, T, K, O, tiles,
+                       kFinish);
+  a.totals = static_cast<const float*>(totals);
+  a.da_raw = static_cast<float*>(da_raw);
+  a.dw = static_cast<float*>(dw);
+  return launch_bwd(a, C, stream);
 }

@@ -14,9 +14,12 @@ Counterpart of ``ops/pallas_pool.py`` in the JAX package (TPU kernel
 tensors its forward and backward launch ``csrc/gated_pool.cu``, for CPU
 tensors they take :func:`gated_attention_pool_reference` and
 :func:`gated_attention_pool_backward_reference`. The kernels have no cap on
-T: :func:`pool_partition` cuts the tile axis into ranges, one block per
-(range, map), and further launches finish once the ranges' partial sums
-are in. The mask gets no gradient. A cotangent that autograd does not
+T. The forward's :func:`pool_partition` cuts the tile axis into ranges,
+one block per (range, map), and a second launch finishes once the ranges'
+partial sums are in. The backward is one launch: one block, or above
+1024 tiles one thread-block cluster whose blocks exchange their sums over
+T in distributed shared memory; :func:`pool_bwd_partition` picks the
+cluster's size and each block's tiles. The mask gets no gradient. A cotangent that autograd does not
 materialise (an output that feeds no loss, such as the detached ``A1^T``
 and ``wROIs`` of the training path) reaches the backward as ``None``, and
 the kernel skips it instead of reading a tensor of zeros.
@@ -54,12 +57,11 @@ POOL_RANGE = 2048
 # wrapper calls that launched the CUDA forward kernel in this process, one
 # or two launches each (not the plain version's calls)
 LAUNCHES = 0
-# wrapper calls that launched the CUDA backward kernel, one or three
-# launches each
+# wrapper calls that launched the CUDA backward kernel, one launch each
 BWD_LAUNCHES = 0
 # wrapper calls that launched the split entries (one shard of a
 # tile-sharded bag): the forward's partials (one or two launches) and
-# finish (one), the backward's partials (one or two) and finish (two)
+# finish (one), the backward's partials (one) and finish (one)
 PARTIAL_LAUNCHES = 0
 FINISH_LAUNCHES = 0
 BWD_PARTIAL_LAUNCHES = 0
@@ -73,6 +75,27 @@ def pool_partition(t):
     if t < 1:
         raise ValueError("need T >= 1 tiles")
     return -(-t // POOL_RANGE), POOL_RANGE
+
+
+# The backward kernel's cluster size by T: (largest T, blocks), one block
+# up to 1024 tiles (every bag the training path pools), then 4 and 8;
+# above the last row BWD_MAX_CLUSTER, a non-portable cluster size. The
+# edges are where the cluster sizes' times crossed in a sweep on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md).
+BWD_CLUSTERS = ((1024, 1), (1792, 4), (3584, 8))
+BWD_MAX_CLUSTER = 16
+
+
+def pool_bwd_partition(t):
+    """The backward kernel's cut of ``t`` tiles, a function of ``t`` alone:
+    ``(c, tiles)``, one launch of a cluster of ``c`` blocks, block r owning
+    tiles ``[r * tiles, min(t, (r + 1) * tiles))``. All three backward
+    entries cut T here, so the split entries on a single shard sum in the
+    one-call entry's order."""
+    if t < 1:
+        raise ValueError("need T >= 1 tiles")
+    c = next((c for top, c in BWD_CLUSTERS if t <= top), BWD_MAX_CLUSTER)
+    return c, -(-t // c)
 
 
 def gated_attention_pool_reference(a_raw, b, mask, weight_mask):
@@ -209,11 +232,14 @@ def _check(a_raw, b, mask, weight_mask):
 
 
 # the C entries of csrc/gated_pool.cu: their pointer arguments, each
-# followed by 5 ints (T, K, O, range, nblk) and the stream
-ENTRIES = {"gated_pool_forward": 8, "gated_pool_backward": 12,
+# followed by 5 ints (T, K, O, then the forward's range and nblk or the
+# backward's tiles and cluster size) and the stream
+ENTRIES = {"gated_pool_forward": 8, "gated_pool_backward": 11,
            "gated_pool_forward_partials": 6, "gated_pool_forward_finish": 8,
-           "gated_pool_backward_partials": 11,
-           "gated_pool_backward_finish": 11}
+           "gated_pool_backward_partials": 10,
+           "gated_pool_backward_finish": 10}
+# what a backward entry returns when no cluster of its size fits on the card
+CLUSTER_UNFIT = -1
 
 
 def _kernel(entry="gated_pool_forward"):
@@ -255,6 +281,11 @@ def _call(entry, *ptrs_and_shape, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernel(entry)(*ptrs_and_shape, stream)
+    if rc == CLUSTER_UNFIT:
+        raise RuntimeError(
+            f"{entry} refused: no cluster of {ptrs_and_shape[-1]} blocks of "
+            "its kernel fits on this card (cudaOccupancyMaxActiveClusters "
+            "is 0)")
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
 
@@ -265,6 +296,16 @@ def _shape(a_raw, b):
     _limits(t, k, o)
     nblk, tiles = pool_partition(t)
     return t, k, o, tiles, nblk
+
+
+def _bwd_shape(a_raw, b):
+    """The backward entries' five ints: T, K, O, tiles a block, cluster
+    size."""
+    t, k = a_raw.shape
+    o = b.shape[1]
+    _limits(t, k, o)
+    c, tiles = pool_bwd_partition(t)
+    return t, k, o, tiles, c
 
 
 def _empty(device, *shape):
@@ -321,17 +362,13 @@ def _launch_backward(a_raw, b, mask, weight_mask, a1t, dm, da1t, dwrois):
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask, a1t=a1t, dm=dm,
                             da1t=da1t, dwrois=dwrois)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
-    dev = a_raw.device
+    shape = _bwd_shape(a_raw, b)
     da_raw, db = torch.empty_like(a_raw), torch.empty_like(b)
     dw = torch.empty_like(weight_mask)
-    # two [K, nblk, 2] tables of the ranges' partial sums (denom and
-    # sum da1 * A1; the two dw sums); none with one range
-    scratch = _empty(dev, 2, k, nblk, 2) if nblk > 1 else None
     _call("gated_pool_backward", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), a1t.data_ptr(), _ptr(dm),
           _ptr(da1t), _ptr(dwrois), da_raw.data_ptr(), db.data_ptr(),
-          dw.data_ptr(), _ptr(scratch), t, k, o, tiles, nblk, device=dev)
+          dw.data_ptr(), *shape, device=a_raw.device)
     BWD_LAUNCHES += 1
     return da_raw, db, dw
 
@@ -431,21 +468,25 @@ def pool_backward_partials(a_raw, b, mask, weight_mask, a1t, dm=None,
     dB: ``gated_pool_backward_partials`` on the card, its plain version on
     the CPU. ``dm`` is the cotangent of the replicated M (the same on
     every rank), ``da1t`` and ``dwrois`` this shard's columns."""
-    global BWD_PARTIAL_LAUNCHES
-    device = _check(a_raw, b, mask, weight_mask)
-    if device.type != "cuda":
+    if _check(a_raw, b, mask, weight_mask).type != "cuda":
         return pool_backward_partials_reference(a_raw, b, mask, weight_mask,
                                                 a1t, dm, da1t, dwrois)
+    return _launch_backward_partials(a_raw, b, mask, weight_mask, a1t, dm,
+                                     da1t, dwrois)
+
+
+def _launch_backward_partials(a_raw, b, mask, weight_mask, a1t, dm, da1t,
+                              dwrois):
+    global BWD_PARTIAL_LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask, a1t=a1t, dm=dm,
                             da1t=da1t, dwrois=dwrois)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
-    stats, db = _empty(device, k, 2), torch.empty_like(b)
-    scratch = _empty(device, k, nblk, 2) if nblk > 1 else None
+    shape = _bwd_shape(a_raw, b)
+    stats, db = a_raw.new_empty((shape[1], 2)), torch.empty_like(b)
     _call("gated_pool_backward_partials", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), a1t.data_ptr(), _ptr(dm),
-          _ptr(da1t), _ptr(dwrois), db.data_ptr(), stats.data_ptr(),
-          _ptr(scratch), t, k, o, tiles, nblk, device=device)
+          _ptr(da1t), _ptr(dwrois), db.data_ptr(), stats.data_ptr(), *shape,
+          device=a_raw.device)
     BWD_PARTIAL_LAUNCHES += 1
     return stats, db
 
@@ -455,21 +496,25 @@ def pool_backward_finish(a_raw, b, mask, weight_mask, totals, dm=None,
     """A shard's dA_raw and its part of dw from the all-reduced ``totals``
     [K, 2]: ``gated_pool_backward_finish`` on the card, its plain version
     on the CPU."""
-    global BWD_FINISH_LAUNCHES
-    device = _check(a_raw, b, mask, weight_mask)
-    if device.type != "cuda":
+    if _check(a_raw, b, mask, weight_mask).type != "cuda":
         return pool_backward_finish_reference(a_raw, b, mask, weight_mask,
                                               totals, dm, da1t, dwrois)
+    return _launch_backward_finish(a_raw, b, mask, weight_mask, totals, dm,
+                                   da1t, dwrois)
+
+
+def _launch_backward_finish(a_raw, b, mask, weight_mask, totals, dm, da1t,
+                            dwrois):
+    global BWD_FINISH_LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask, totals=totals, dm=dm,
                             da1t=da1t, dwrois=dwrois)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
+    shape = _bwd_shape(a_raw, b)
     da_raw, dw = torch.empty_like(a_raw), torch.empty_like(weight_mask)
-    dw_scratch = _empty(device, k, nblk, 2)
     _call("gated_pool_backward_finish", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), _ptr(dm), _ptr(da1t),
           _ptr(dwrois), totals.data_ptr(), da_raw.data_ptr(), dw.data_ptr(),
-          dw_scratch.data_ptr(), t, k, o, tiles, nblk, device=device)
+          *shape, device=a_raw.device)
     BWD_FINISH_LAUNCHES += 1
     return da_raw, dw
 

@@ -334,3 +334,152 @@ def test_training_backward_gets_absent_cotangents(monkeypatch):
     outs["loss"].backward()
     assert seen == [[False, True, True]]
     assert model.weight_mask.grad is not None
+
+
+# ------------------------------------------- the backward's one-launch cut
+
+_BWD_EDGES = sorted({top + d for top, _ in gated_pool.BWD_CLUSTERS
+                     for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("t", sorted({1, 40, 250, 500, 512, 50000}
+                                     | set(_BWD_EDGES)))
+def test_pool_bwd_partition_covers_every_tile_once(t):
+    """The backward's cluster of C blocks covers [0, T) exactly once, in
+    order, with no block empty; C is a cluster size the kernel launches
+    (portable up to 8, or the non-portable 16); a bag the training path
+    pools (up to 512 tiles) is one block."""
+    c, tiles = gated_pool.pool_bwd_partition(t)
+    assert c in (1, 2, 4, 8, 16)
+    assert c <= gated_pool.BWD_MAX_CLUSTER
+    covered = np.zeros(t, np.int64)
+    ends = []
+    for r in range(c):
+        lo, hi = r * tiles, min(t, (r + 1) * tiles)
+        assert lo < hi
+        covered[lo:hi] += 1
+        ends.append((lo, hi))
+    assert np.all(covered == 1)
+    assert ends == sorted(ends) and ends[-1][1] == t
+    if t <= 512:
+        assert c == 1
+
+
+def test_pool_bwd_partition_keeps_every_training_bag_on_one_block():
+    """Every T up to 512 tiles (the 20 % subsample of a 2500-tile bag is
+    500) takes one block, and C never shrinks as T grows."""
+    cs = [gated_pool.pool_bwd_partition(t)[0] for t in range(1, 8193)]
+    assert set(cs[:512]) == {1}
+    assert all(a <= b for a, b in zip(cs, cs[1:]))
+
+
+@pytest.mark.parametrize("t", [0, -3])
+def test_pool_bwd_partition_refuses_an_empty_bag(t):
+    with pytest.raises(ValueError):
+        gated_pool.pool_bwd_partition(t)
+
+
+def _c_entries():
+    """``{name: (pointers, ints)}`` of the ``extern "C"`` entries of
+    csrc/gated_pool.cu; the trailing ``void* stream`` is not a pointer
+    argument of ENTRIES."""
+    import os
+    import re
+
+    src = open(os.path.join(_build.CSRC, "gated_pool.cu")).read()
+    out = {}
+    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        params = [p.strip() for p in args.split(",")]
+        assert params[-1] == "void* stream"
+        params = params[:-1]
+        n_int = sum(p.startswith("int ") for p in params)
+        n_ptr = sum("void*" in p for p in params)
+        assert n_int + n_ptr == len(params)
+        assert all("void*" in p for p in params[:n_ptr])
+        out[name] = (n_ptr, n_int)
+    return out
+
+
+def test_entries_match_the_c_signatures():
+    """ENTRIES' pointer counts (what ctypes passes before the five ints
+    and the stream) equal the C source's signatures, entry by entry."""
+    c = _c_entries()
+    assert set(c) == set(gated_pool.ENTRIES)
+    for name, n_ptr in gated_pool.ENTRIES.items():
+        assert c[name] == (n_ptr, 5), name
+
+
+_CALLS = {
+    "gated_pool_backward": "_launch_backward",
+    "gated_pool_backward_partials": "_launch_backward_partials",
+    "gated_pool_backward_finish": "_launch_backward_finish",
+}
+
+
+@pytest.mark.parametrize("t", [40, 500, 1025, 50000])
+@pytest.mark.parametrize("only_dm", [True, False])
+@pytest.mark.parametrize("entry", sorted(_CALLS))
+def test_backward_launch_is_one_call_with_no_scratch(entry, only_dm, t,
+                                                     monkeypatch):
+    """The host side of each backward entry, with ``_call`` recorded in
+    place of the library (CPU tensors, no card): one call of its entry,
+    its ENTRIES pointers and the five ints with no scratch pointer among
+    them, the partition ints from pool_bwd_partition, a null pointer
+    exactly for each absent cotangent, the entry's counter up by one."""
+    k, o = 3, 1
+    a_raw, b, mask, wm = (torch.from_numpy(x) for x in _inputs(t, k, o))
+    a1t = torch.rand((k, t))
+    totals = torch.rand((k, 2))
+    cots = [_torch(c) for c in _cotangents(t, k, o, 7, only_dm)]
+    calls = []
+    monkeypatch.setattr(gated_pool, "_call",
+                        lambda name, *args, device: calls.append(
+                            (name, args, device)))
+    counter = {"gated_pool_backward": "BWD_LAUNCHES",
+               "gated_pool_backward_partials": "BWD_PARTIAL_LAUNCHES",
+               "gated_pool_backward_finish": "BWD_FINISH_LAUNCHES"}[entry]
+    before = getattr(gated_pool, counter)
+    launch = getattr(gated_pool, _CALLS[entry])
+    if entry == "gated_pool_backward_finish":
+        outs = launch(a_raw, b, mask, wm, totals, *cots)
+        inputs = [a_raw, b, mask, wm, cots[0], cots[1], cots[2], totals]
+        shapes = [a_raw.shape, wm.shape]
+    else:
+        outs = launch(a_raw, b, mask, wm, a1t, *cots)
+        inputs = [a_raw, b, mask, wm, a1t, *cots]
+        shapes = ([a_raw.shape, b.shape, wm.shape]
+                  if entry == "gated_pool_backward"
+                  else [b.shape, (k, 2)])
+    assert getattr(gated_pool, counter) == before + 1
+    assert len(calls) == 1
+    name, args, device = calls[0]
+    assert name == entry and device == a_raw.device
+    n_ptr = gated_pool.ENTRIES[entry]
+    assert len(args) == n_ptr + 5
+    ptrs, ints = args[:n_ptr], args[n_ptr:]
+    assert ints == (t, k, o, *reversed(gated_pool.pool_bwd_partition(t)))
+    n_in = len(inputs)
+    assert list(ptrs[:n_in]) == [None if x is None else x.data_ptr()
+                                 for x in inputs]
+    # the rest are the outputs, in the C signature's order (the partials'
+    # dB before its table), none of them scratch
+    in_c_order = outs[::-1] if entry == "gated_pool_backward_partials" else outs
+    assert list(ptrs[n_in:]) == [x.data_ptr() for x in in_c_order]
+    assert [tuple(x.shape) for x in in_c_order] == [tuple(s) for s in shapes]
+
+
+def test_split_backward_on_the_cpu_takes_the_plain_version(monkeypatch):
+    """A CPU tensor never reaches a launch: the split backward's wrappers
+    take their plain versions and call no entry."""
+    monkeypatch.setattr(gated_pool, "_call", None)  # a call would raise
+    args = [torch.from_numpy(x) for x in _inputs(20, 3, 1)]
+    a1t = gated_pool.gated_attention_pool(*args)[1]
+    dm = torch.ones((3, 1))
+    stats, db = gated_pool.pool_backward_partials(*args, a1t, dm)
+    want = gated_pool.pool_backward_partials_reference(*args, a1t, dm)
+    torch.testing.assert_close(stats, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(db, want[1], rtol=0, atol=0)
+    got = gated_pool.pool_backward_finish(*args, stats, dm)
+    want = gated_pool.pool_backward_finish_reference(*args, stats, dm)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
