@@ -128,7 +128,19 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (  # noqa: E402
     checkpoint,
     classify,
+    classify_legacy,
+    gan,
+    gan_generate,
     serve,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (  # noqa: E402
+    gan_dataset,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.models import (  # noqa: E402
+    stylegan as sg,
+)
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (  # noqa: E402
+    helpers,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (  # noqa: E402
     interop,
@@ -2947,6 +2959,558 @@ def mesh_cli(n, train_flags, serve_inputs, card):
     return launches
 
 
+# ------------------------------------------- the figures, the GAN, legacy
+GAN_SEL = [0] + [1] * 8          # a style-mixing crossover after block 0
+GAN_TRAIN_MAX = 64               # the progressive run: 8 -> 64 px
+GAN_TRAIN_ITEMS = 1024           # four batches of 256 at every resolution
+GAN_HI = 512                     # a few steps at the schedule's 512 px
+GAN_HI_ACCUM = 2                 # batch 100 in two microbatches of 50
+GAN_HI_BATCHES = 4
+GAN_PARITY_STEPS = (1, 7)        # 8 px and 512 px, card vs CPU
+GAN_TOL = 1e-4                   # card vs CPU, f32 with TF32 off
+
+
+@contextlib.contextmanager
+def pool_spy(limit=1):
+    """Record the arguments of the first ``limit`` calls of the pool's
+    forward and backward wrappers (the calls still launch and count)."""
+    seen = {"fwd": [], "bwd": []}
+    real_f = gated_pool.gated_attention_pool
+    real_b = gated_pool.gated_attention_pool_backward
+
+    def keep(kind, args):
+        if len(seen[kind]) < limit:
+            seen[kind].append([None if a is None else a.detach().clone()
+                               for a in args])
+
+    def fwd(*args):
+        keep("fwd", args)
+        return real_f(*args)
+
+    def bwd(*args):
+        keep("bwd", args)
+        return real_b(*args)
+
+    gated_pool.gated_attention_pool = fwd
+    gated_pool.gated_attention_pool_backward = bwd
+    try:
+        yield seen
+    finally:
+        gated_pool.gated_attention_pool = real_f
+        gated_pool.gated_attention_pool_backward = real_b
+
+
+def hold_spied(label, seen):
+    """The spied calls' kernels against the plain versions on the same
+    inputs (the forward to 1e-5 / 1e-6, the backward to 1e-5 x max|ref|);
+    these launches do not count. Returns the worst absolute error."""
+    counts = pool_counts()
+    worst = 0.0
+    for args in seen["fwd"]:
+        got = gated_pool.gated_attention_pool(*args)
+        want = gated_pool.gated_attention_pool_reference(*args)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        if errs[0] > 1e-5 or max(errs[1:]) > 1e-6:
+            raise AssertionError(f"{label}: the pool kernel disagrees "
+                                 f"with its plain version: {errs}")
+        worst = max(worst, *errs)
+    for args in seen["bwd"]:
+        got = gated_pool.gated_attention_pool_backward(*args)
+        want = gated_pool.gated_attention_pool_backward_reference(*args)
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            if err > 1e-5 * max(float(w.abs().max()), 1e-30):
+                raise AssertionError(f"{label}: the pool backward kernel "
+                                     "disagrees with its plain version")
+            worst = max(worst, err)
+    torch.cuda.synchronize()
+    set_pool_counts(counts)
+    return worst
+
+
+def figures_phase(flags, one, card):
+    """The figures' data on the card: ``Driver.visualize``'s whole-slide
+    forward on the one-pass slide (its pool launch counted and held to
+    the plain pool on the same inputs), ``activation_summary`` and
+    ``activation_grids`` of 8 tiles at 300 px (held to the CPU's), and
+    ``--peak`` / ``--n_vis 1``: refused naming matplotlib where it is
+    missing, their files written where it is present."""
+    root = os.path.join(CACHE, "figures")
+    args = classify.build_argparser().parse_args(
+        TRAIN_ARGS + flags + ["--output_root", root])
+    driver = classify.Driver(args, classify.make_config(args), root)
+    one.update_resolution_and_buffer(300)
+    zero_pool_counts()
+    with pool_spy() as seen:
+        d = driver.visualize_data(one)
+    launches = pool_counts()["LAUNCHES"]
+    require_launched("figures_visualize", {"LAUNCHES": launches},
+                     ("LAUNCHES",))
+    err = hold_spied("figures_visualize", seen)
+    finite = all(bool(np.isfinite(d[k]).all()) for k in ("A", "M", "F"))
+    tiles = one.get_inference_data()[0][:8]
+    stats = helpers.activation_summary(driver.model.cnn, tiles)
+    grids = helpers.activation_grids(driver.model.cnn, tiles)
+    cpu_cnn = resnet.ResNet26(embed_dim=driver.cfg.L, device="cpu")
+    cpu_cnn.load_state_dict(driver.model.cnn.state_dict())
+    cpu_grids = helpers.activation_grids(cpu_cnn, tiles.cpu())
+    grid_gap = max(float(np.abs(grids[k] - cpu_grids[k]).max()
+                         / max(np.abs(cpu_grids[k]).max(), 1e-30))
+                   for k in grids)
+    have = helpers.have_matplotlib()
+    cli = {}
+    for flag in (["--peak"], ["--n_vis", "1", "--epoch_end", "0"]):
+        argv = TRAIN_ARGS + flags + ["--output_root", root, "--tag",
+                                     "FIG", *flag]
+        if have:
+            run_trainer(argv)
+            cli[flag[0]] = "ran"
+        else:
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    classify.main(argv)
+            except SystemExit as e:
+                if "matplotlib" not in str(e):
+                    raise
+                cli[flag[0]] = f"refused: {e}"
+            else:
+                raise AssertionError(f"{flag} ran without matplotlib")
+    written = sorted(os.listdir(os.path.join(root, "run_FIG"))) if have \
+        else []
+    ok = finite and grid_gap <= 1e-4 and (not have or any(
+        n.startswith("kernels-") for n in written))
+    emit({"phase": "figures", "visualize_tiles": int(d["A"].shape[1]),
+          "launches": launches, "pool_err_vs_plain": err,
+          "finite": finite, "activation_layers": sorted(stats),
+          "activation_grid_card_vs_cpu_rel": grid_gap, "tol_grid": 1e-4,
+          "matplotlib": have, "cli": cli, "files": written[:20], "ok": ok,
+          **card})
+    if not ok:
+        raise AssertionError("the figures' data is wrong")
+    return launches, err
+
+
+def _gan_nets(width=1.0, code=512, seed=0):
+    init = torch.Generator().manual_seed(seed)
+    g = sg.init_styled_generator(init, style_dim=code, width_mult=width)
+    d = sg.init_discriminator(init, width_mult=width)
+    return g, d
+
+
+def _rel(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def gan_parity(card):
+    """The full-width StyleGAN (code 512, the 8-layer MLP) on the card
+    against the same modules on the CPU, f32 with TF32 off: G and D at
+    8 and 512 px with alpha 0.5 and 1; one d_step and one g_step with the
+    same draws at 8 px (losses, the critic's gradients through the
+    gradient penalty, the parameters after Adam and the EMA); and a world
+    of one over NCCL against the one card."""
+    import copy
+
+    g, d = _gan_nets()
+    gc, dc = copy.deepcopy(g).cpu(), copy.deepcopy(d).cpu()
+    gen = torch.Generator().manual_seed(1)
+    fwd = {}
+    with torch.no_grad():
+        for step in GAN_PARITY_STEPS:
+            zs = torch.randn((2, 2, 512), generator=gen)
+            noise = sg.make_noise(gen, 2, step)
+            x = torch.rand((2, 3, 4 * 2 ** step, 4 * 2 ** step),
+                           generator=gen) * 2 - 1
+            for alpha in (0.5, 1.0):
+                want = sg.apply_styled_generator(gc, zs, noise, step=step,
+                                                 alpha=alpha,
+                                                 style_sel=GAN_SEL)
+                got = sg.apply_styled_generator(
+                    g, zs.cuda(), [n.cuda() for n in noise], step=step,
+                    alpha=alpha, style_sel=GAN_SEL)
+                dw = sg.apply_discriminator(dc, x, step=step, alpha=alpha)
+                dg = sg.apply_discriminator(d, x.cuda(), step=step,
+                                            alpha=alpha)
+                fwd[f"step{step}_alpha{alpha}"] = [_rel(got, want),
+                                                   _rel(dg, dw)]
+    # one d_step and one g_step, the same draws on both devices
+    step, B = 1, 8
+    draws_d = gan.draw_d(gen, dc, B, step)
+    draws_g = gan.draw_g(gen, dc, B, step)
+    real = torch.rand((B, 3, 8, 8), generator=gen) * 2 - 1
+    zs = torch.randn((2, B, 512), generator=gen)
+
+    def on(tree, dev):
+        return gan._rows(tree, slice(None)) if dev == "cpu" else \
+            mesh_mod._to(tree, dev)
+
+    def critic_grads(gm, dm, dev):
+        terms = []
+        _, aux = gan.d_loss(gm, dm, real.to(dev), zs.to(dev), GAN_SEL, 0.5,
+                            on(draws_d, dev), step=step, sink=terms.append)
+        grads = torch.autograd.grad(sum(terms), list(dm.parameters()),
+                                    allow_unused=True)
+        return aux, [torch.zeros_like(p) if gr is None else gr
+                     for p, gr in zip(dm.parameters(), grads)]
+
+    aux_c, grad_c = critic_grads(gc, dc, "cpu")
+    aux_g, grad_g = critic_grads(g, d, "cuda")
+    scale = max(1.0, max(float(x.abs().max()) for x in grad_c))
+    grad_gap = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(grad_g, grad_c)) / scale
+    loss_gap = max(abs(float(aux_g[k]) - float(aux_c[k]))
+                   / max(1.0, abs(float(aux_c[k]))) for k in aux_c)
+
+    def steps_on(gm, dm, dev, mesh=None):
+        """One d_step and one g_step; returns the critic's and the EMA's
+        parameters, the generator's, each step's gradients (captured as
+        Adam takes them) and the losses."""
+        ema = copy.deepcopy(gm).requires_grad_(False)
+        g_opt, d_opt = gan.make_optimizers(gm, dm)
+        grads, real_step = [], gan._adam_step
+
+        def capture(opt, lr):
+            grads.append([torch.zeros_like(q) if q.grad is None
+                          else q.grad.detach().cpu().clone()
+                          for grp in opt.param_groups for q in grp["params"]])
+            real_step(opt, lr)
+
+        gan._adam_step = capture
+        try:
+            aux = gan.make_d_step(step, mesh=mesh)(
+                gm, dm, d_opt, real.to(dev), zs.to(dev), GAN_SEL, 0.5, 1e-3,
+                on(draws_d, dev))
+            gl = gan.make_g_step(step, ema_decay=0.9, mesh=mesh)(
+                gm, dm, g_opt, ema, zs.to(dev), GAN_SEL, 0.5, 1e-3,
+                on(draws_g, dev))
+        finally:
+            gan._adam_step = real_step
+        cpu = [[p.detach().cpu() for p in m.parameters()]
+               for m in (dm, ema, gm)]
+        # the generator's groups list the progression, then the style MLP:
+        # the order of gm.parameters()
+        return cpu, grads, float(aux["grad_penalty"]), float(gl)
+
+    def gap(a, b, masks):
+        return max(float((x - y).abs()[m].max()) if m.any() else 0.0
+                   for x, y, m in zip(a, b, masks))
+
+    pc = steps_on(copy.deepcopy(gc), copy.deepcopy(dc), "cpu")
+    pg = steps_on(copy.deepcopy(g), copy.deepcopy(d), "cuda")
+    # Adam's first step is lr x g / (|g| + eps): held where |g| > 1e-6,
+    # where the gradient and not its rounding sets the sign
+    det_d = [(x.abs() > 1e-6) | (x == 0) for x in pc[1][0]]
+    det_g = [(x.abs() > 1e-6) | (x == 0) for x in pc[1][1]]
+    param_gap = max(gap(pg[0][0], pc[0][0], det_d),
+                    gap(pg[0][2], pc[0][2], det_g))
+    ema_gap = gap(pg[0][1], pc[0][1], det_g)
+    step_loss_gap = max(abs(pg[2] - pc[2]) / max(1.0, abs(pc[2])),
+                        abs(pg[3] - pc[3]) / max(1.0, abs(pc[3])))
+    undetermined = sum(int((~m).sum()) for m in det_d + det_g)
+    if undetermined > 0.01 * sum(m.numel() for m in det_d + det_g):
+        raise AssertionError(f"{undetermined} gradient elements at rounding "
+                             "level")
+    # a world of one over NCCL against the one card: the same steps
+    store = os.path.join(CACHE, "gan_world1")
+    os.makedirs(store, exist_ok=True)
+    mesh_mod.init(1, 0, backend="nccl",
+                  init_method="file://" + os.path.join(store, "one"))
+    try:
+        pw = steps_on(copy.deepcopy(g), copy.deepcopy(d), "cuda",
+                      mesh=mesh_mod.data_mesh(device="cuda:0"))
+    finally:
+        dist.destroy_process_group()
+    world1_gap = max(gap(pw[0][0], pg[0][0], det_d),
+                     gap(pw[0][2], pg[0][2], det_g),
+                     gap(pw[0][1], pg[0][1], det_g))
+    fwd_worst = max(max(v) for v in fwd.values())
+    ok = (fwd_worst <= GAN_TOL and grad_gap <= GAN_TOL
+          and loss_gap <= GAN_TOL and param_gap <= 1e-5
+          and ema_gap <= 1e-5 and step_loss_gap <= GAN_TOL
+          and world1_gap <= 1e-6)
+    emit({"phase": "gan_parity", "width_mult": 1.0, "code_size": 512,
+          "n_mlp": 8, "tf32": False,
+          "forward_rel_G_D_card_vs_cpu": fwd, "tol_forward_rel": GAN_TOL,
+          "d_loss_gap_rel": loss_gap, "critic_grad_gap_rel": grad_gap,
+          "gp_card": float(aux_g["grad_penalty"]),
+          "steps_param_gap": param_gap, "steps_ema_gap": ema_gap,
+          "steps_loss_gap_rel": step_loss_gap, "tol_steps": 1e-5,
+          "steps_undetermined_elements": undetermined,
+          "world1_nccl_vs_card_param_gap": world1_gap, "tol_world1": 1e-6,
+          "ok": ok, **card})
+    if not ok:
+        raise AssertionError("the StyleGAN on the card disagrees with the "
+                             "CPU or the world of one")
+
+
+def _smooth_images(n, size, seed):
+    """``n`` uint8 RGB images of a few low-frequency colour waves."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.rand((n, 3, 8, 8), generator=g, device="cuda")
+    img = F.interpolate(base, size=(size, size), mode="bicubic",
+                        align_corners=False)
+    img = (img.clamp(0, 1) * 255).round().to(torch.uint8)
+    return img.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+
+
+def gan_store(name, n, size, seed):
+    src = os.path.join(CACHE, f"{name}_src")
+    os.makedirs(src)
+    np.save(os.path.join(src, "tiles.npy"), _smooth_images(n, size, seed))
+    out = os.path.join(CACHE, name)
+    with contextlib.redirect_stdout(sys.stderr):
+        gan_dataset._main(["--src", src, "--out", out, "--min-size", "8",
+                           "--max-size", str(size)])
+    return out
+
+
+def run_gan(argv):
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = gan.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"gan.main({argv}) returned {rc}")
+
+
+def read_stats(out):
+    with open(os.path.join(out, "train_stats.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def gan_train(card):
+    """The trainer CLI at full width (TF32 convolutions, PyTorch's default
+    for cuDNN): 8 -> 64 px through --step_every 1 at the schedule's batch
+    256, four batches an epoch, on a store the script writes; the resume
+    of the last epoch from the previous epoch's checkpoint, bit-identical;
+    four batches at 512 px (batch 100, --grad_accum 2); gan_generate from
+    the 64 px checkpoint; export-gan then import-gan, bit-exact. Prints
+    imgs/s, the critic and generator step times (median of the three
+    steps after the first, timed with the trace of --profile left out)
+    and the peak memory per resolution. Returns the 64 px checkpoint."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.utils import (
+        profiling,
+    )
+
+    tf32, trace = torch.backends.cudnn.allow_tf32, profiling.trace
+    torch.backends.cudnn.allow_tf32 = True
+    profiling.trace = lambda *a, **kw: contextlib.nullcontext()
+    try:
+        t0 = time.perf_counter()
+        store = gan_store("gan_store", GAN_TRAIN_ITEMS, GAN_TRAIN_MAX, 5)
+        # a checkpoint at epoch 2 (the resume's start) and at the last
+        common = ["--data_dir", store, "--init_size", "8", "--max_size",
+                  str(GAN_TRAIN_MAX), "--step_every", "1", "--max_batches",
+                  "4", "--mixing", "--profile", "--ckpt_every", "3"]
+        out = os.path.join(CACHE, "gan_run")
+        run_gan(common + ["--epochs", "4", "--output_dir", out])
+        ckpt_dir = os.path.join(out, "checkpoint")
+        resumed = os.path.join(CACHE, "gan_resume")
+        run_gan(common + ["--epochs", "4", "--epoch_start", "3", "--ckpt",
+                          os.path.join(ckpt_dir, "train_step-2.model"),
+                          "--output_dir", resumed])
+        a = checkpoint.load_raw(os.path.join(ckpt_dir, "train_step-3.model"))
+        b = checkpoint.load_raw(os.path.join(resumed, "checkpoint",
+                                             "train_step-3.model"))
+        resume_same = sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
+        hi_store = gan_store("gan_store_hi", 100 * GAN_HI_BATCHES, GAN_HI, 6)
+        hi = os.path.join(CACHE, "gan_hi")
+        run_gan(["--data_dir", hi_store, "--init_size", str(GAN_HI),
+                 "--max_size", str(GAN_HI), "--epochs", "1", "--max_batches",
+                 str(GAN_HI_BATCHES), "--grad_accum", str(GAN_HI_ACCUM),
+                 "--profile", "--output_dir", hi])
+        gen_out = os.path.join(CACHE, "gan_generate")
+        with contextlib.redirect_stdout(sys.stderr):
+            gan_generate.main([os.path.join(ckpt_dir, "train_step-3.model"),
+                               "--size", str(GAN_TRAIN_MAX), "--n_mixing",
+                               "2", "--output_dir", gen_out])
+        generated = sorted(os.listdir(gen_out))
+        ckpt = os.path.join(ckpt_dir, "train_step-3.model")
+        pt, back = os.path.join(CACHE, "gan_ref.pt"), \
+            os.path.join(CACHE, "gan_back.model")
+        with contextlib.redirect_stdout(sys.stderr):
+            torch_interop.main(["export-gan", ckpt, pt])
+            torch_interop.main(["import-gan", pt, back])
+        c = checkpoint.load_raw(back)
+        params = [k for k in a if k.split("/")[0] in
+                  ("generator", "discriminator", "g_running")]
+        round_trip = (sorted(params) == sorted(
+            k for k in c if not k.startswith("extra/"))
+            and all(np.array_equal(a[k], c[k]) for k in params))
+        rows = []
+        for stats in (read_stats(out), read_stats(hi)):
+            for r in stats:
+                timed_s = r["step_s"][1:]
+                d_s = r["d_step_s"][1:]
+                g_s = [t - u for t, u in zip(timed_s, d_s)]
+                rows.append({
+                    "resolution": r["resolution"], "batch": r["batch"],
+                    "grad_accum": r["grad_accum"],
+                    "imgs_per_s": r["batch"] / statistics.median(timed_s),
+                    "d_step_ms": 1e3 * statistics.median(d_s),
+                    "g_step_ms": 1e3 * statistics.median(g_s),
+                    "step_ms": 1e3 * statistics.median(timed_s),
+                    "peak_mem_gb": r["peak_mem_bytes"] / 1e9})
+        ok = (resume_same and round_trip and "sample.png" in generated
+              and len(rows) == 5
+              and all(np.isfinite(r["imgs_per_s"]) for r in rows))
+        emit({"phase": "gan_train", "width_mult": 1.0, "code_size": 512,
+              "conv_tf32": True, "compute_dtype": "f32",
+              "cudnn_deterministic": True, "by_resolution": rows,
+              "resume_bit_identical": resume_same,
+              "export_import_gan_bit_exact": round_trip,
+              "generated": generated,
+              "seconds": time.perf_counter() - t0, "ok": ok, **card})
+        if not ok:
+            raise AssertionError("the GAN trainer's run failed its checks")
+        return ckpt
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        profiling.trace = trace
+
+
+def _kind(name):
+    n = name.lower()
+    for kind, keys in (("conv_gemm", ("conv", "xmma", "gemm", "implicit",
+                                      "winograd", "cutlass", "dgrad",
+                                      "wgrad")),
+                       ("copy", ("memcpy", "memset", "copy")),
+                       ("reduce", ("reduce",)),
+                       ("elementwise", ("elementwise", "vectorized",
+                                        "unrolled"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def gan_step_costs(card):
+    """One full-width 32 px step (batch 256, critic then generator) timed
+    in turns in three settings: the trainer's on the card (TF32
+    convolutions, cuDNN's deterministic algorithms), strict f32, and TF32
+    without the determinism; then one traced critic step of the trainer's
+    setting: its device time by kernel kind, the double backward's share
+    (the device time under ``ConvolutionBackwardBackward0``) and the
+    device's busy share of the step's wall time."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g, d = _gan_nets()
+    step, B = 3, 256
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    real = torch.rand((B, 3, 32, 32), generator=gen, device="cuda") * 2 - 1
+    g_opt, d_opt = gan.make_optimizers(g, d)
+    ema = copy.deepcopy(g).requires_grad_(False)
+    d_step, g_step = gan.make_d_step(step), gan.make_g_step(step)
+
+    def critic():
+        zs = torch.randn((2, B, 512), generator=gen, device="cuda")
+        d_step(g, d, d_opt, real, zs, GAN_SEL, 1.0, 1e-3,
+               gan.draw_d(gen, d, B, step))
+
+    def both():
+        critic()
+        zs = torch.randn((2, B, 512), generator=gen, device="cuda")
+        g_step(g, d, g_opt, ema, zs, GAN_SEL, 1.0, 1e-3,
+               gan.draw_g(gen, d, B, step))
+        torch.cuda.synchronize()
+
+    cudnn = torch.backends.cudnn
+    settings = {"tf32_deterministic": (True, True),
+                "f32_deterministic": (False, True),
+                "tf32_nondeterministic": (True, False)}
+    times = {k: [] for k in settings}
+    saved = (cudnn.allow_tf32, cudnn.deterministic)
+    try:
+        for _ in range(2):  # in turns, each after a warm step
+            for key, (tf32, det) in settings.items():
+                cudnn.allow_tf32, cudnn.deterministic = tf32, det
+                both()
+                t0 = time.perf_counter()
+                both()
+                times[key].append(time.perf_counter() - t0)
+        cudnn.allow_tf32, cudnn.deterministic = True, True
+        both()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            critic()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = saved
+    by_kind = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = _kind(e.name)
+            by_kind[k] = by_kind.get(k, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    busy = sum(by_kind.values())
+    dbl = sum(getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0.0)
+              for e in prof.key_averages()
+              if e.key == "ConvolutionBackwardBackward0") / 1e3
+    emit({"phase": "gan_step_costs", "resolution": 32, "batch": B,
+          "width_mult": 1.0, "step_s": times,
+          "critic_trace": {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                           "device_busy_share": busy / (wall * 1e3),
+                           "by_kind_ms": by_kind,
+                           "double_backward_conv_ms": dbl},
+          **card})
+    if busy <= 0:
+        raise AssertionError("the traced critic step ran nothing on the "
+                             "card")
+
+
+def legacy_phase(flags, gan_ckpt, card):
+    """``classify_legacy.main`` on the training cohort at 64 px over the
+    64 px run's critic (--gan_ckpt, cut at 6 blocks: the whole 64 px
+    critic, 512 features): one epoch, then --test_only from its
+    checkpoint; the pool's forward and backward launches counted, the
+    first of each held to the plain pool, and the .dla maps written."""
+    root = os.path.join(CACHE, "legacy")
+    common = flags + ["--roi_size", str(TRAIN_ROI), "--resolution", "64",
+                      "--gan_ckpt", gan_ckpt, "--output_root", root]
+    t0 = time.perf_counter()
+    zero_pool_counts()
+    with pool_spy() as seen, contextlib.redirect_stdout(sys.stderr):
+        rc = classify_legacy.main(common + ["--epoch_start", "0",
+                                            "--epoch_end", "1"])
+    train_counts = pool_counts()
+    if rc != 0:
+        raise AssertionError(f"classify_legacy returned {rc}")
+    require_launched("legacy_train", train_counts,
+                     ("LAUNCHES", "BWD_LAUNCHES"))
+    err = hold_spied("legacy_train", seen)
+    (run,) = [n for n in os.listdir(root) if n.startswith("run_")]
+    ckpt = os.path.join(root, run, "train_step-000.model")
+    zero_pool_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = classify_legacy.main(common + ["--test_only", "--ckpt", ckpt])
+    test_counts = pool_counts()
+    if rc != 0:
+        raise AssertionError(f"classify_legacy --test_only returned {rc}")
+    require_launched("legacy_test", test_counts, ("LAUNCHES",))
+    maps = [n for n in os.listdir(os.path.join(root, "test_data"))
+            if n.endswith(".dla")]
+    blob = checkpoint.load_raw(ckpt)
+    finite = all(np.isfinite(v).all() for k, v in blob.items()
+                 if k.startswith("classifier/"))
+    ok = finite and len(maps) == 4 * len(TRAIN_COHORT)
+    emit({"phase": "legacy", "resolution": 64, "disc_cutoff": 6,
+          "features": int(blob["classifier/context/gamma"].shape[0]),
+          "launches": {"legacy_train": train_counts,
+                       "legacy_test": test_counts},
+          "pool_err_vs_plain": err, "dla_maps": len(maps),
+          "adam_count": int(blob["optimizer/count"]), "finite": finite,
+          "seconds": time.perf_counter() - t0, "ok": ok, **card})
+    if not ok:
+        raise AssertionError("the legacy classifier's run failed its checks")
+    return train_counts, test_counts, err
+
+
+
 def split_row(way, mesh_launches, max_err, times):
     """The kernels line's row of the split entries of the pool's forward or
     backward: their launches on the mesh paths (each path's own count,
@@ -3146,6 +3710,18 @@ def main():
         launches["train_profile"], bwd_profile = profile_phase(flags, runs,
                                                                card)
         build_caches_phase(slides, card)
+        # the figures, the GAN family and the legacy classifier
+        launches["figures_visualize"], fig_err = figures_phase(flags, one,
+                                                               card)
+        gan_parity(card)
+        gan_ckpt = gan_train(card)
+        gan_step_costs(card)
+        legacy_train, legacy_test, legacy_err = legacy_phase(flags, gan_ckpt,
+                                                             card)
+        launches["legacy_train"] = legacy_train["LAUNCHES"]
+        launches["legacy_test"] = legacy_test["LAUNCHES"]
+        bwd_launches_legacy = legacy_train["BWD_LAUNCHES"]
+        max_err = max(max_err, fig_err, legacy_err)
         mesh_launches, split_err, split_times = mesh_phase(one, big, card)
         mesh_launches.update(mesh_cli(1, flags, cli_serve_inputs(model,
                                                                  slides),
@@ -3180,14 +3756,16 @@ def main():
         "name": "gated_attention_pool_backward", "route": "cuda",
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
-        "launches": bwd_launches + bwd_profile, "max_abs_err": bwd_err,
+        "launches": bwd_launches + bwd_profile + bwd_launches_legacy,
+        "max_abs_err": max(bwd_err, legacy_err),
         **bwd_times[t_bwd], "library_ms": None,
         "shape": {"T": t_bwd, "K": 3, "O": 1, "cotangents": "dM"},
         "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
         "bound_share_by_T": {t: r["bound_share"]
                              for t, r in bwd_times.items()},
         "launches_by_path": {"train_classify": bwd_launches,
-                             "train_profile": bwd_profile}},
+                             "train_profile": bwd_profile,
+                             "legacy_train": bwd_launches_legacy}},
         *[split_row(way, mesh_launches, split_err, split_times[way])
           for way in ("forward", "backward")]]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
 """Data layer: whole-slide IO, tiling + tissue filtering (native C++ or
 torch), the tile cache, on-device tile transforms, bag bucketing, the
-training bag loader and prefetcher, label sheets and the slide dataset."""
+training bag loader and prefetcher, label sheets, the slide dataset, and
+the GAN's image folder and resolution-keyed store."""
 
 from . import (  # noqa: F401
     accessors,
     dataset,
+    gan_dataset,
     loader,
     native,
     roibuilder,

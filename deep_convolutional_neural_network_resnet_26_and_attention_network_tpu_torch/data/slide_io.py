@@ -49,9 +49,19 @@ def _read_tifffile(path: str) -> np.ndarray:
         return np.asarray(tf.series[target].asarray())
 
 
-def _read_pil(path: str) -> np.ndarray:
-    from PIL import Image
+def _pil_image():
+    """Pillow's ``Image`` module; where Pillow is not installed, a
+    RuntimeError that names it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError("this image format needs Pillow, which is not "
+                           "installed") from e
+    return Image
 
+
+def _read_pil(path: str) -> np.ndarray:
+    Image = _pil_image()
     Image.MAX_IMAGE_PIXELS = None  # WSIs exceed the decompression-bomb limit
     with Image.open(path) as im:
         # multi-page TIFF: pick the largest frame
@@ -102,9 +112,7 @@ def write_synthetic_slide(path: str, array: np.ndarray) -> str:
         _tifffile.imwrite(path, array)
         return path
     if path.endswith((".tif", ".tiff")):
-        from PIL import Image
-
-        Image.fromarray(array).save(path)
+        _pil_image().fromarray(array).save(path)
         return path
     if not path.endswith(".npy"):
         path = os.path.splitext(path)[0] + ".npy"

@@ -11,9 +11,11 @@ JAX package (``entry`` at its line 45, ``dryrun_multichip`` at 113):
     (slides, tiles) mesh (``parallel/mesh.py``) and runs, on tiny shapes,
     one window step (bags over the slide axis, each bag's tiles over the
     tile axis, the gradients summed over every rank) and the explicit
-    sharded pool (``parallel/shard_pool.py``). The JAX dry run's other half,
-    the StyleGAN steps over a data mesh, comes with the GAN family:
-    :func:`dryrun_multichip_gan` raises, naming ROADMAP A.12.
+    sharded pool (``parallel/shard_pool.py``).
+  * :func:`dryrun_multichip_gan`, the JAX dry run's other half: the
+    StyleGAN's WGAN-GP critic step (double backward, two microbatches a
+    rank) and its style-mixing generator step with the EMA, over a data
+    mesh of ``n`` gloo ranks on the CPU.
 
 Run ``python -m deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.graft_entry``
 on a machine with a card.
@@ -84,12 +86,45 @@ def dryrun_multichip(n_devices: int) -> None:
         raise AssertionError(f"the ranks disagree on the loss: {losses}")
 
 
+def _gan_dryrun_rank(mesh):
+    """One rank of :func:`dryrun_multichip_gan`: the critic step at 4 px,
+    two microbatches of one image a rank, then the style-mixing generator
+    step; returns both losses."""
+    from .models import stylegan as sg
+    from .train import gan
+
+    dm = M.data_mesh(device=mesh.device)
+    width, step, B = 1 / 32, 0, 2 * dm.size
+    init = torch.Generator().manual_seed(2)
+    gen = sg.init_styled_generator(init, width_mult=width, device=dm.device)
+    disc = sg.init_discriminator(init, width_mult=width, device=dm.device)
+    ema = sg.init_styled_generator(init, width_mult=width, device=dm.device)
+    ema.load_state_dict(gen.state_dict())
+    g_opt, d_opt = gan.make_optimizers(gen, disc)
+    draws = torch.Generator().manual_seed(3)
+    d_step = gan.make_d_step(step, grad_accum=2, mesh=dm)
+    aux = d_step(gen, disc, d_opt, torch.ones((B, 3, 4, 4)),
+                 torch.ones((1, B, 512)), None, 1.0, 1e-3,
+                 gan.draw_d(draws, disc, B, step))
+    sel = [0] + [1] * (gen.n_blocks - 1)
+    g_step = gan.make_g_step(step, grad_accum=2, mesh=dm)
+    g_loss = g_step(gen, disc, g_opt, ema, torch.ones((2, B, 512)), sel, 1.0,
+                    1e-3, gan.draw_g(draws, disc, B, step))
+    losses = (float(aux["disc_loss"]), float(g_loss))
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite GAN losses in the dry run: {losses}")
+    return losses
+
+
 def dryrun_multichip_gan(n_devices: int) -> None:
-    """The JAX dry run's StyleGAN half (the WGAN-GP d_step and the
-    style-mixing g_step over a data mesh): not ported yet."""
-    raise NotImplementedError(
-        "the StyleGAN steps are not ported to the PyTorch package yet; "
-        "ROADMAP A.12 (the GAN family) brings them")
+    """The JAX dry run's StyleGAN half on ``n_devices`` gloo ranks on the
+    CPU (tiny widths): the WGAN-GP d_step with two microbatches and the
+    style-mixing g_step over a data mesh; every rank must report the same
+    finite losses."""
+    losses = M.launch(_gan_dryrun_rank, n_devices,
+                      devices=["cpu"] * n_devices)
+    if len(set(losses)) != 1:
+        raise AssertionError(f"the ranks disagree on the losses: {losses}")
 
 
 if __name__ == "__main__":
@@ -98,3 +133,5 @@ if __name__ == "__main__":
     print("entry() OK:", [tuple(o.shape) for o in out])
     dryrun_multichip(8)
     print("dryrun_multichip OK on 8 gloo ranks on the CPU")
+    dryrun_multichip_gan(8)
+    print("dryrun_multichip_gan OK on 8 gloo ranks on the CPU")

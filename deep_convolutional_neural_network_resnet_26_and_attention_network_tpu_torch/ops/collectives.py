@@ -27,7 +27,9 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks of a group; its backward sums the cotangents the
     same way, since every rank's copy of the sum feeds that rank's own
-    downstream computation."""
+    downstream computation. The backward is itself this function, so the
+    sum is differentiable to any order (the GAN's gradient penalty
+    differentiates through a gradient that crosses it)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -36,7 +38,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return all_reduce_(dy.clone(), ctx.group), None
+        return _AllReduceSum.apply(dy, ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

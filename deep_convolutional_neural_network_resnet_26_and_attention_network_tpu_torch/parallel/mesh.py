@@ -23,8 +23,13 @@ CPU, or several ranks on one card (``devices=``), talk over gloo. Rank 0
 owns every print and every file write: the other ranks' standard output
 goes to ``os.devnull``.
 
-``data_mesh`` and the GAN batch shardings of the JAX module serve the GAN
-trainer and come with it (ROADMAP A.12).
+:func:`data_mesh` is the GAN trainer's 1-axis mesh (the JAX package's
+``data_mesh``, the reference's 4-GPU ``nn.DataParallel``): every rank of
+the world holds the whole parameter set and a contiguous share of each
+batch (:func:`data_batch_sharding`, :func:`style_batch_sharding`); the
+critic's minibatch stddev is an all-reduce over it and the parameter
+gradients are summed over it before each optimizer step
+(``train/gan.py``).
 """
 
 import dataclasses
@@ -301,3 +306,58 @@ def launch(fn, n: int, *, args=(), slides: int | None = None,
         if store_dir is not None:
             shutil.rmtree(store_dir, ignore_errors=True)
     return [out.get(r) for r in range(n)]
+
+
+DATA_AXIS = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """A 1-axis data mesh: this rank's ``rank`` among ``size`` ranks, its
+    device, and the group the batch splits over."""
+    size: int
+    rank: int
+    device: torch.device
+    group: object
+
+    @property
+    def world_group(self):
+        return self.group
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous share of a batch of ``n``, which must
+        divide over the mesh."""
+        if n % self.size:
+            raise ValueError(f"a batch of {n} does not split over a data "
+                             f"mesh of {self.size}")
+        share = n // self.size
+        return slice(self.rank * share, (self.rank + 1) * share)
+
+
+def data_mesh(n_devices: int | None = None, *, device=None) -> DataMesh:
+    """The data mesh over the initialised default group (the whole world;
+    ``n_devices`` defaults to it and must equal it). ``device`` is this
+    rank's, ``cuda:<rank>`` by default under NCCL and the CPU under gloo."""
+    if not dist.is_initialized():
+        raise RuntimeError("data_mesh needs the process group: call "
+                           "parallel.mesh.init (or use launch) first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"a {n_devices}-rank data mesh needs a world of "
+                         f"{n_devices} ranks, not {world}")
+    if device is None:
+        device = (torch.device("cuda", rank) if dist.get_backend() == "nccl"
+                  else torch.device("cpu"))
+    return DataMesh(size=world, rank=rank, device=torch.device(device),
+                    group=dist.group.WORLD)
+
+
+def data_batch_sharding(mesh: DataMesh):
+    """``[B, ...]`` -> this rank's rows (the batch axis is the first)."""
+    return lambda x: x[mesh.rows(x.shape[0])]
+
+
+def style_batch_sharding(mesh: DataMesh):
+    """``[n_styles, B, code]`` latent stacks -> this rank's rows of the
+    batch, their axis 1."""
+    return lambda zs: zs[:, mesh.rows(zs.shape[1])]

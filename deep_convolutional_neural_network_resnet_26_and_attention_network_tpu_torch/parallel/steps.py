@@ -40,14 +40,34 @@ def make_optimizer(model):
                             eps=ADAM_EPS)
 
 
+ADAM_BETAS_LEGACY = (0.9, 0.99)
+
+
+def make_optimizer_legacy(model, lr_mults=None):
+    """Adam with the legacy driver's betas (reference: gbm/classify.py:374,
+    betas=(0.9, 0.99)), the JAX package's ``make_optimizer_legacy``: one
+    parameter group per top-level module of ``model``, each with the
+    ``lr_mult`` that ``lr_mults`` gives its name (1 if absent), which
+    :func:`apply_updates` multiplies into the learning rate."""
+    groups = {}
+    for name, p in model.named_parameters():
+        groups.setdefault(name.split(".")[0], []).append(p)
+    lr_mults = lr_mults or {}
+    return torch.optim.Adam(
+        [{"params": ps, "lr_mult": float(lr_mults.get(top, 1.0))}
+         for top, ps in groups.items()],
+        lr=0.0, betas=ADAM_BETAS_LEGACY, eps=ADAM_EPS)
+
+
 def apply_updates(optimizer, lr: float):
     """One optimizer step on the summed gradients at learning rate ``lr``
+    (times each group's ``lr_mult``, where it has one)
     (``optimizer.step()`` after the reference's 5 accumulated bags,
     gbm/classify_combined.py:450-454), then clear the gradients. A
     parameter without a gradient steps with a zero one, as optax updates
     every leaf: its moments decay and its step count advances."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        group["lr"] = float(lr) * group.get("lr_mult", 1.0)
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -94,10 +94,14 @@ def snapshot(model, optimizer=None) -> dict:
     return blob
 
 
-def save(path: str, model, optimizer=None):
+def save(path: str, model, optimizer=None, extra: dict | None = None):
     """Persist ``model``'s parameters (and ``optimizer``'s Adam state) as
-    one .model file, in JAX layouts."""
-    return save_blob(path, snapshot(model, optimizer))
+    one .model file, in JAX layouts; ``extra`` entries go under
+    ``extra/<key>``."""
+    blob = snapshot(model, optimizer)
+    for k, v in (extra or {}).items():
+        blob[f"extra/{k}"] = np.asarray(v)
+    return save_blob(path, blob)
 
 
 def load_raw(path: str) -> dict:

@@ -30,11 +30,18 @@ partial tail window pads with zero-weight copies. Validation and
 ``--interface`` stream their oversized slides over every rank. Rank 0
 writes every file and prints; a resume loads on every rank.
 
-Not ported yet, each refusing to start with the ``ROADMAP.md`` item that
-brings it: ``--peak`` and ``--n_vis`` above 0 (the figures, slice (d);
-the default is 0 here, so ``--interface`` draws no heatmap panels). The
-JAX trainer's figures (``plot_gbm_metrics``, ``plot_prediction_summary``)
-wait with them; the data behind them is written.
+The figures (``train/heatmap.py``, ``utils/plots.py``,
+``utils/helpers.py``) need matplotlib, which the card's machine lacks.
+``--peak`` (the first conv's kernels and the ResNet's activation stats
+and grids on a training bag, then exit) and ``--n_vis N`` (the 2x3
+attention panel of up to N slides, each a whole-slide eval forward through
+the pool kernel, at epoch 0 and every 10 epochs, and before
+``--interface``) exit naming matplotlib where it is missing. ``--n_vis``
+defaults to 0 here (the JAX trainer's default is 8). Where matplotlib is
+present the trainer also draws, as the JAX trainer does, the prediction
+summary of each validation and the metric curves (``plot_gbm_metrics``)
+every 5 epochs; where it is missing it says so once at startup and writes
+only their data (``*summary.json``, ``<epoch>predictions.json``).
 
 Run ``python -m deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train.classify --help``.
 """
@@ -50,7 +57,8 @@ import torch
 
 from .._device import resolve_device
 from ..data import dataset as ds_mod
-from ..data.loader import epoch_loader_seed, prefetch_iter, sample_data
+from ..data.loader import (epoch_loader_seed, pad_bag, prefetch_iter,
+                           sample_data)
 from ..models import attention_mil as amil
 from ..parallel import inference, steps
 from ..parallel import mesh as M
@@ -58,10 +66,8 @@ from ..utils import helpers, plots, profiling
 from . import DIVERGED_EXIT, PreemptionLatch, checkpoint, schedule
 
 TARGET_NAMES = ["A", "B", "C"]
-# the ROADMAP items that bring the options this port does not have yet
-NOT_PORTED = {"peak": "slice (d) (the figures: weight and activation "
-                      "inspection)",
-              "n_vis": "slice (d) (the figures: heatmap panels)"}
+# the options this port does not have (every option is ported)
+NOT_PORTED = {}
 
 
 def build_argparser():
@@ -83,8 +89,7 @@ def build_argparser():
                         "linear layers stay freshly initialized")
     p.add_argument("--peak", action="store_true",
                    help="Inspect weight matrices / activations and exit "
-                        "(not ported yet, ROADMAP slice (d); refuses to "
-                        "start)")
+                        "(needs matplotlib)")
     p.add_argument("--test_only", action="store_true",
                    help="Exit after one validation pass")
     p.add_argument("--interface", action="store_true",
@@ -118,9 +123,10 @@ def build_argparser():
                    help="recompute resnet blocks in the backward pass to fit "
                         "large training bags")
     p.add_argument("--n_vis", default=0, type=int,
-                   help="slides visualized every 10 epochs (the figures are "
-                        "not ported yet, ROADMAP slice (d): above 0 refuses "
-                        "to start)")
+                   help="slides whose attention heatmap panel is drawn at "
+                        "epoch 0, every 10 epochs and before --interface "
+                        "(needs matplotlib above 0; the JAX trainer's "
+                        "default is 8)")
     p.add_argument("--tensorboard", action="store_true",
                    help="stream epoch stats to runs/TAG_<tag> under "
                         "--output_root (legacy SummaryWriter parity; a "
@@ -185,6 +191,7 @@ class Driver:
         self.args = args
         self.cfg = cfg
         self.output_dir = output_dir
+        self.heat_dir = os.path.join(output_dir, "heatmaps")
         self.device = resolve_device(device)
         self.mesh = mesh
         self.writes = mesh is None or mesh.rank == 0
@@ -528,8 +535,10 @@ class Driver:
                    for k, v in dev.items()}
         predictions = [int(p) for p in fetched["y_pred_hat"]]
         n = max(n, 1)
-        # the JAX trainer draws plot_prediction_summary here; the figures
-        # are not ported (ROADMAP slice (d)), the data behind them is:
+        if predvals and self.writes and helpers.have_matplotlib():
+            os.makedirs(self.heat_dir, exist_ok=True)
+            plots.plot_prediction_summary(epoch, self.heat_dir, predvals,
+                                          labels)
         # <epoch>predictions.json, plot_roc's input (reference:
         # gbm/plot_roc.py:12-38): score = P(class A), label = 1 iff A
         if predvals and self.writes:
@@ -548,6 +557,66 @@ class Driver:
         epoch_stats["valid_eval_mode"] = not stage.train_mode
         print(f"V: Loss {epoch_stats['valid_loss']:.3f}; "
               f"Error {100 * epoch_stats['valid_err']:.2f}%")
+
+    # -------------------------------------------------------- visualize
+    def visualize_data(self, sample) -> dict:
+        """The heatmap panel's data for one slide: its whole bag through the
+        eval forward (so through the pool kernel): ``wROIs`` [K, T],
+        ``Mterm``, ``Fterm`` [T, L] as numpy, with the raster, the raw
+        tiles and the name."""
+        data, raster, img_data = sample.get_inference_data()
+        tiles, mask = pad_bag(data)
+        outs = self.fwd_eval(self.model, tiles, mask, 1)
+        T = data.shape[0]
+        return {"A": outs["wROIs"].float().cpu().numpy()[:, :T],
+                "M": outs["Mterm"].float().cpu().numpy(),
+                "F": outs["Fterm"].float().cpu().numpy()[:T],
+                "raster": raster, "img_data": img_data,
+                "roi_size": sample.params["roi_size"]}
+
+    def visualize(self, epoch: int, sample, mode: str = "Train"):
+        """Whole-slide inference -> the 2x3 attention heatmap panel
+        (reference: gbm/classify_combined.py:142-218); returns its path."""
+        from . import heatmap
+
+        d = self.visualize_data(sample)
+        os.makedirs(self.heat_dir, exist_ok=True)
+        return heatmap.create_map(
+            mode + "-" + sample.getname(), epoch, "Last", d["img_data"],
+            d["raster"], d["A"], d["F"], d["M"], roi_size=d["roi_size"],
+            output_dir=self.heat_dir)
+
+    # ------------------------------------------------------------- peak
+    def peak(self, dataset):
+        """Weight and activation inspection (reference:
+        gbm/classify_combined.py:537-544): the first conv's kernels, then
+        one training bag's first 8 tiles through the ResNet's taps, their
+        stats printed and their grids drawn."""
+        from ..models import resnet
+
+        helpers.plot_kernels(self.model, self.args.epoch_start, 0,
+                             output_dir=self.output_dir)
+        dataset.train()
+        loader = sample_data(dataset, image_size=self.args.resolution,
+                             shuffle=True)
+        for tiles, mask, label in loader:
+            tiles = tiles[:8]
+            with torch.no_grad():
+                _, acts = resnet.apply_resnet26(
+                    self.model.cnn, tiles, compute_dtype=self.compute_dtype,
+                    taps=True)
+            summary = helpers.activation_summary(self.model.cnn, tiles,
+                                                 acts=acts)
+            for layer, stats in summary.items():
+                print(f"{layer:10s} {stats}")
+            grids = helpers.activation_grids(self.model.cnn, tiles,
+                                             acts=acts)
+            for layer, grid in grids.items():
+                helpers.plot_activations(
+                    grid, os.path.join(self.output_dir,
+                                       f"activations-{layer}.png"))
+            return summary
+        return {}
 
     # -------------------------------------------------------- interface
     def interface(self, epoch: int, dataset):
@@ -646,6 +715,13 @@ def _refuse_not_ported(args):
             raise SystemExit(
                 f"classify: --{flag} is not ported to the PyTorch package "
                 f"yet; ROADMAP {item} brings it")
+    drawing = [f for f, on in (("--peak", args.peak),
+                               ("--n_vis", args.n_vis > 0)) if on]
+    if drawing and not helpers.have_matplotlib():
+        raise SystemExit(
+            f"classify: {' and '.join(drawing)} "
+            f"{'draw' if len(drawing) > 1 else 'draws'} figures, which "
+            "needs matplotlib; it is not installed here")
 
 
 def main(argv=None, *, device=None):
@@ -670,6 +746,10 @@ def _mesh_rank(mesh, argv):
 
 def _run(args, device, mesh=None):
     print(args)
+    if not helpers.have_matplotlib():
+        print("note: matplotlib is not installed: the metric curves and the "
+              "prediction summaries are not drawn; their data is in "
+              "*summary.json and <epoch>predictions.json")
     if args.interface:
         output_dir = os.path.join(args.output_root, "interface_data")
     else:
@@ -728,11 +808,27 @@ def _run(args, device, mesh=None):
         driver.enable_int8(list(dataset.test_slide_builders)
                            or list(dataset.all_builders))
 
+    if args.peak:
+        if writes:
+            driver.peak(dataset)
+        return 0
+
     if args.epoch_start == 0 and writes:
         with open(os.path.join(output_dir, "model_structure.txt"), "w+") as f:
             f.write(helpers.model_summary(driver.model))
 
+    # visualization samples: the reference hardcodes 8 demo slides
+    # (gbm/classify_combined.py:501-516); here the first 4 test and the
+    # first 4 training slides, cut to --n_vis
+    vis_samples = ([(b, "Test") for b in dataset.test_slide_builders[:4]]
+                   + [(b, "Train") for b in dataset.train_slide_builders[:4]]
+                   )[:args.n_vis] if writes else []
+    for b, _ in vis_samples:  # arm the transforms (reference :509-516)
+        b.update_resolution_and_buffer(args.resolution)
+
     if args.interface:
+        for b, m in vis_samples:
+            driver.visualize(0, b, mode=m)
         driver.interface(0, dataset)
         return 0
 
@@ -750,6 +846,8 @@ def _run(args, device, mesh=None):
 
         tb_writer = EpochWriter(os.path.join(args.output_root, "runs",
                                              f"TAG_{args.tag}"))
+    if vis_samples:
+        driver.visualize(0, vis_samples[0][0], mode=vis_samples[0][1])
     latch = PreemptionLatch().install()
     try:
         for ep in range(args.epoch_start, args.epoch_end + 1):
@@ -768,8 +866,11 @@ def _run(args, device, mesh=None):
                 driver.validate(ep, dataset, epoch_stats)
                 if writes:
                     helpers.savestats(args, output_dir, ep, epoch_stats)
-                # the JAX trainer redraws plot_gbm_metrics here; the
-                # figures wait for ROADMAP slice (d)
+                    if helpers.have_matplotlib():
+                        plots.plot_gbm_metrics(output_dir, args.tag)
+            if ep % 10 == 0:
+                for b, m in vis_samples:
+                    driver.visualize(ep, b, mode=m)
             if tb_writer is not None:
                 tb_writer.log_epoch(ep, epoch_stats)
             stop = latch.stop_requested()

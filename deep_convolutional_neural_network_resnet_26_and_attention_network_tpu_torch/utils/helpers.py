@@ -9,9 +9,16 @@ JAX package's parameter paths (``cnn/stages/0/1/conv2/w``), so the
 ``output_dict`` report and ``classification_report_text`` of its printed
 table, which the machines the port runs on need not have;
 ``write_frame_csv`` writes the interface mode's tables in the layout of
-pandas' ``to_csv``, which they need not have either. The matplotlib plots
-(activations, kernels, layer and gradient flows) are not ported yet. Pure
-numpy over host arrays.
+pandas' ``to_csv``, which they need not have either.
+
+The figures: ``activation_summary`` / ``activation_grids`` (the data of
+``prime_activation_summary`` / ``prime_activation_vis``, from the
+ResNet-26's ``taps``), ``plot_activations``, ``plot_kernels``,
+``plot_layer_summary``, ``plot_attn_flow``, ``plot_bag_flow``,
+``plot_grad_flow``, and ``RandomCrop2X``. matplotlib is imported only
+inside :func:`pyplot`, behind a guard: where it is not installed (the
+card's machine), :func:`have_matplotlib` is False and a drawing call
+raises naming it; the data functions need only numpy and torch.
 """
 
 import csv
@@ -19,6 +26,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 
 def _minmax_normalize(x):
@@ -81,13 +89,14 @@ def savestats(args, output_dir: str, epoch: int, epoch_stats: dict) -> str:
     return path
 
 
-def named_parameters(model):
+def named_parameters(model, value=None):
     """Yield ('/'-joined JAX path, numpy array in the JAX layout) for an
-    ``AttentionMIL``, in the checkpoint's key order."""
+    ``AttentionMIL``, in the checkpoint's key order; ``value(param)``
+    picks another per-parameter tensor (``interop.jax_params_from_module``)."""
     from ..train.checkpoint import _flatten
     from . import interop
 
-    yield from _flatten(interop.jax_params_from_module(model)).items()
+    yield from _flatten(interop.jax_params_from_module(model, value)).items()
 
 
 def get_layer_weight_summary_mean(model) -> dict:
@@ -198,3 +207,237 @@ def write_frame_csv(path: str, rows: dict):
         for key, values in rows.items():
             out.writerow([key] + ["" if np.isnan(v) else repr(float(v))
                                   for v in np.asarray(values, np.float64)])
+
+
+# --------------------------------------------------------------- figures
+
+
+def pyplot():
+    """matplotlib's pyplot on the Agg backend, or None where matplotlib is
+    not installed."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
+
+
+def have_matplotlib() -> bool:
+    return pyplot() is not None
+
+
+def require_pyplot(what: str):
+    """pyplot, or a RuntimeError saying that ``what`` needs matplotlib."""
+    plt = pyplot()
+    if plt is None:
+        raise RuntimeError(f"{what} needs matplotlib, which is not "
+                           "installed")
+    return plt
+
+
+def _taps(cnn, tiles, compute_dtype, acts):
+    if acts is None:
+        from ..models import resnet
+
+        with torch.no_grad():
+            _, acts = resnet.apply_resnet26(cnn, tiles,
+                                            compute_dtype=compute_dtype,
+                                            taps=True)
+    return {k: v.float().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v, np.float32) for k, v in acts.items()}
+
+
+def activation_summary(cnn, tiles, *, compute_dtype=None, acts=None) -> dict:
+    """Layer -> activation stats of the ResNet-26 ``cnn`` over a stack of
+    NHWC tiles (``prime_activation_summary``'s hooks, as returns). ``acts``
+    reuses a forward's taps."""
+    out = {}
+    for name, a in _taps(cnn, tiles, compute_dtype, acts).items():
+        out[name] = {
+            "shape": list(a.shape),
+            "mean": float(a.mean()),
+            "std": float(a.std()),
+            "min": float(a.min()),
+            "max": float(a.max()),
+            "frac_nonzero": float((a != 0).mean()),
+        }
+    return out
+
+
+def activation_grids(cnn, tiles, *, compute_dtype=None, acts=None) -> dict:
+    """Layer -> [C, h, w] mean-over-batch feature maps
+    (``prime_activation_vis``); feed to :func:`plot_activations`."""
+    grids = {}
+    for name, a in _taps(cnn, tiles, compute_dtype, acts).items():
+        if a.ndim == 4:  # [N, H, W, C] -> [C, H, W]
+            grids[name] = a.mean(axis=0).transpose(2, 0, 1)
+    return grids
+
+
+def plot_activations(grid, path=None, max_channels: int = 16):
+    """Render a [C, H, W] activation grid (call site:
+    gbm/classify_combined.py:381)."""
+    plt = require_pyplot("plot_activations")
+    c = min(grid.shape[0], max_channels)
+    cols = int(np.ceil(np.sqrt(c)))
+    rows = int(np.ceil(c / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(2 * cols, 2 * rows))
+    axes = np.atleast_1d(axes).ravel()
+    for i in range(c):
+        axes[i].imshow(grid[i], cmap="viridis")
+        axes[i].axis("off")
+    for ax in axes[c:]:
+        ax.axis("off")
+    plt.tight_layout()
+    if path:
+        plt.savefig(path)
+    plt.close(fig)
+    return path
+
+
+def plot_kernels(model, epoch: int, step, *, output_dir: str = ".",
+                 max_kernels: int = 20):
+    """The first conv kernel grid, in checkpoint key order (call site:
+    gbm/classify_combined.py:541)."""
+    plt = require_pyplot("plot_kernels")
+    for name, w in named_parameters(model):
+        if w.ndim == 4:  # HWIO conv kernel
+            k = w.transpose(3, 0, 1, 2)  # [O, H, W, I]
+            n = min(k.shape[0], max_kernels)
+            cols = int(np.ceil(np.sqrt(n)))
+            rows = int(np.ceil(n / cols))
+            fig, axes = plt.subplots(rows, cols, figsize=(2 * cols, 2 * rows))
+            axes = np.atleast_1d(axes).ravel()
+            for i in range(n):
+                img = k[i, :, :, :3] if k.shape[-1] >= 3 else k[i, :, :, 0]
+                lo, hi = img.min(), img.max()
+                axes[i].imshow((img - lo) / (hi - lo + 1e-9))
+                axes[i].axis("off")
+            for ax in axes[n:]:
+                ax.axis("off")
+            path = os.path.join(
+                output_dir,
+                f"kernels-{name.replace('/', '.')}-ep{epoch:03d}.png")
+            plt.tight_layout()
+            plt.savefig(path)
+            plt.close(fig)
+            return path  # the reference plots the stem: the first conv wins
+    return None
+
+
+def _bar_chart(plt, names, series, path, ylabel=None):
+    fig = plt.figure(figsize=(max(6, len(names) * 0.4), 4))
+    xs = np.arange(len(names))
+    width = 0.8 / len(series)
+    for j, (label, vals) in enumerate(series):
+        offset = (j - (len(series) - 1) / 2) * width
+        plt.bar(xs + offset, vals, width=width if len(series) > 1 else 0.8,
+                label=label)
+    plt.xticks(xs, names, rotation=90, fontsize=5)
+    if ylabel:
+        plt.ylabel(ylabel)
+    if len(series) > 1:
+        plt.legend()
+    plt.tight_layout()
+    if path:
+        plt.savefig(path)
+    plt.close(fig)
+
+
+def plot_layer_summary(model, path=None):
+    """Per-layer weight mean/max |w| bars (call site: gbm/classify.py:324);
+    returns {layer: (mean, max)}."""
+    plt = require_pyplot("plot_layer_summary")
+    names, means, maxes = [], [], []
+    for name, w in named_parameters(model):
+        names.append(name)
+        means.append(float(np.abs(w).mean()))
+        maxes.append(float(np.abs(w).max()))
+    _bar_chart(plt, names, [("mean |w|", means), ("max |w|", maxes)], path)
+    return dict(zip(names, zip(means, maxes)))
+
+
+def plot_attn_flow(attention_weights, path=None):
+    """Per-map attention-weight histograms over tiles (call site:
+    gbm/classify.py:325). attention_weights: [K, T]."""
+    plt = require_pyplot("plot_attn_flow")
+    a = np.asarray(attention_weights)
+    fig, axes = plt.subplots(1, a.shape[0], figsize=(4 * a.shape[0], 3))
+    for k, ax in enumerate(np.atleast_1d(axes)):
+        ax.hist(a[k], bins=40)
+        ax.set_title(f"map {k}")
+        ax.set_xlabel("attention weight")
+    plt.tight_layout()
+    if path:
+        plt.savefig(path)
+    plt.close(fig)
+    return path
+
+
+def plot_bag_flow(bag_sizes, losses=None, path=None):
+    """Tiles-a-bag trajectory with an optional loss overlay (call site:
+    gbm/classify.py:327)."""
+    plt = require_pyplot("plot_bag_flow")
+    fig, ax1 = plt.subplots(figsize=(8, 3))
+    ax1.plot(bag_sizes, "C0")
+    ax1.set_ylabel("tiles/bag", color="C0")
+    ax1.set_xlabel("step")
+    if losses is not None:
+        ax2 = ax1.twinx()
+        ax2.plot(losses, "C1")
+        ax2.set_ylabel("loss", color="C1")
+    plt.tight_layout()
+    if path:
+        plt.savefig(path)
+    plt.close(fig)
+    return path
+
+
+def plot_grad_flow(model, path=None):
+    """Mean |grad| per layer, from the parameters' ``.grad`` (zero where
+    none), as bars (call site: gbm/classify.py:326); returns the means."""
+    plt = require_pyplot("plot_grad_flow")
+    names, means = [], []
+    for name, g in named_parameters(
+            model, lambda p: p.grad if p.grad is not None
+            else torch.zeros_like(p)):
+        names.append(name)
+        means.append(float(np.abs(g).mean()))
+    _bar_chart(plt, names, [("mean |grad|", means)], path,
+               ylabel="mean |grad|")
+    return means
+
+
+class RandomCrop2X:
+    """One random crop applied to two paired images
+    (PyTorchHelpers.RandomCrop2X call sites: Datasets.py:171,242,331).
+
+    Execute(imgA, imgB) -> (cropA, cropB, (row, col)); HWC numpy arrays,
+    zero-padded like torchvision's pad_if_needed. The offsets draw from
+    numpy's ``default_rng(seed)`` as in the JAX package, so both packages
+    crop alike."""
+
+    def __init__(self, size: int, pad_if_needed: bool = True, seed=None):
+        self.size = size
+        self.pad_if_needed = pad_if_needed
+        self._rng = np.random.default_rng(seed)
+
+    def _pad(self, img):
+        h, w = img.shape[:2]
+        ph, pw = max(0, self.size - h), max(0, self.size - w)
+        if ph or pw:
+            img = np.pad(img, [(0, ph), (0, pw)] + [(0, 0)] * (img.ndim - 2))
+        return img
+
+    def Execute(self, img_a, img_b):
+        if self.pad_if_needed:
+            img_a, img_b = self._pad(img_a), self._pad(img_b)
+        h, w = img_a.shape[:2]
+        r = int(self._rng.integers(0, h - self.size + 1))
+        c = int(self._rng.integers(0, w - self.size + 1))
+        crop_a = img_a[r:r + self.size, c:c + self.size]
+        crop_b = img_b[r:r + self.size, c:c + self.size]
+        return crop_a, crop_b, (r, c)

@@ -22,7 +22,20 @@ moments across the two packages. ``qparams_from_jax`` / ``scales_from_jax``
 carry the int8 serving path's quantized weights and activation scales
 (``ops/quant.py``). The name rules are the port's own copy; nothing is
 imported from the JAX package.
+
+The StyleGAN half (``models/stylegan.py``): :func:`gan_key` maps a
+reference state-dict name of the styled generator or the critic onto the
+JAX package's flat parameter path and layout kind (the rules of the JAX
+package's ``utils/torch_interop.py``), :func:`gan_flat_from_module` /
+:func:`load_gan_flat` carry a module's parameters (or, with ``value``,
+its gradients or Adam moments) to and from those flat JAX-layout arrays,
+and :func:`gan_adam_to_flat` / :func:`load_gan_adam` do the same for a
+``torch.optim.Adam`` in optax's ``ScaleByAdamState`` layout. The GAN
+checkpoints (``train/gan.py``) and the reference interchange
+(``utils/torch_interop.py``) both go through them.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -202,3 +215,218 @@ def load_adam_state(model: torch.nn.Module, optimizer, count, mu, nu):
             "exp_avg": mu_sd[name].to(p.device, p.dtype).contiguous(),
             "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).contiguous()}
     return optimizer
+
+
+# ---------------------------------------------------------------- StyleGAN
+CONV, LIN, VEC = "conv", "lin", "vec"
+FUP = "fup"      # FusedUpsample [I, O, k, k] <-> [k, k, I, O]
+NOISE = "noise"  # NoiseInjection [1, C, 1, 1] <-> [C]
+CONST = "const"  # ConstantInput [1, C, 4, 4] <-> [1, 4, 4, C]
+SKIP = "skip"    # a blur buffer: regenerated, never carried
+UNKNOWN = "unknown"
+
+
+def gan_to_jax(arr, kind):
+    """A reference-layout array -> the JAX package's layout."""
+    arr = np.asarray(arr)
+    if kind == CONV:
+        return np.transpose(arr, (2, 3, 1, 0))
+    if kind == LIN:
+        return arr.T
+    if kind == FUP:
+        return np.transpose(arr, (2, 3, 0, 1))
+    if kind == NOISE:
+        return arr.reshape(-1)
+    if kind == CONST:
+        return np.transpose(arr, (0, 2, 3, 1))
+    return arr
+
+
+def gan_to_torch(arr, kind):
+    """The inverse of :func:`gan_to_jax`."""
+    arr = np.asarray(arr)
+    if kind == CONV:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if kind == LIN:
+        return arr.T
+    if kind == FUP:
+        return np.transpose(arr, (2, 3, 0, 1))
+    if kind == NOISE:
+        return arr.reshape(1, -1, 1, 1)
+    if kind == CONST:
+        return np.transpose(arr, (0, 3, 1, 2))
+    return arr
+
+
+def _wb(name):
+    return "w" if name == "weight_orig" else "b"
+
+
+def _gen_key(key):
+    """StyledGenerator state-dict name -> (JAX flat key, kind)."""
+    m = re.match(r"^style\.(\d+)\.linear\.(weight_orig|bias)$", key)
+    if m:  # Sequential: PixelNorm at 0, EqualLinear at 1, 3, 5, ...
+        s = _wb(m.group(2))
+        return f"style/{(int(m.group(1)) - 1) // 2}/{s}", (
+            LIN if s == "w" else VEC)
+    m = re.match(r"^generator\.to_rgb\.(\d+)\.conv\.(weight_orig|bias)$",
+                 key)
+    if m:
+        s = _wb(m.group(2))
+        return (f"generator/to_rgb/{m.group(1)}/{s}",
+                CONV if s == "w" else VEC)
+    m = re.match(r"^generator\.progression\.(\d+)\.(.+)$", key)
+    if not m:
+        return None, UNKNOWN
+    base, rest = f"generator/progression/{m.group(1)}", m.group(2)
+    if rest == "conv1.input":
+        return f"{base}/constant", CONST
+    if rest in ("conv1.conv.weight_orig", "conv1.1.conv.weight_orig"):
+        return f"{base}/conv1/w", CONV
+    if rest in ("conv1.conv.bias", "conv1.1.conv.bias", "conv1.0.bias"):
+        return f"{base}/conv1/b", VEC
+    if rest == "conv1.0.weight":
+        return f"{base}/conv1/w", FUP
+    if re.match(r"^conv1\.[12]\.(weight|weight_flip)$", rest):
+        return None, SKIP
+    m2 = re.match(r"^noise([12])\.weight_orig$", rest)
+    if m2:
+        return f"{base}/noise{m2.group(1)}", NOISE
+    m2 = re.match(r"^adain([12])\.style\.linear\.(weight_orig|bias)$", rest)
+    if m2:
+        s = _wb(m2.group(2))
+        return f"{base}/adain{m2.group(1)}/{s}", LIN if s == "w" else VEC
+    m2 = re.match(r"^conv2\.conv\.(weight_orig|bias)$", rest)
+    if m2:
+        s = _wb(m2.group(1))
+        return f"{base}/conv2/{s}", CONV if s == "w" else VEC
+    return None, UNKNOWN
+
+
+def _disc_key(key):
+    """Discriminator state-dict name -> (JAX flat key, kind)."""
+    m = re.match(r"^linear\.linear\.(weight_orig|bias)$", key)
+    if m:
+        s = _wb(m.group(1))
+        return f"linear/{s}", LIN if s == "w" else VEC
+    m = re.match(r"^from_rgb\.(\d+)\.(?:0\.)?conv\.(weight_orig|bias)$",
+                 key)
+    if m:  # with or without the from_rgb_activate Sequential
+        s = _wb(m.group(2))
+        return f"from_rgb/{m.group(1)}/{s}", CONV if s == "w" else VEC
+    m = re.match(r"^progression\.(\d+)\.(.+)$", key)
+    if not m:
+        return None, UNKNOWN
+    base, rest = f"progression/{m.group(1)}", m.group(2)
+    if rest == "conv1.0.conv.weight_orig":
+        return f"{base}/conv1/w", CONV
+    if rest == "conv1.0.conv.bias":
+        return f"{base}/conv1/b", VEC
+    # conv2: EqualConv2d at 0 (the final block) or 1 (after the blur),
+    # or the FusedDownsample's own weight at 1
+    if rest in ("conv2.0.conv.weight_orig", "conv2.1.conv.weight_orig",
+                "conv2.1.weight"):
+        return f"{base}/conv2/w", CONV
+    if rest in ("conv2.0.conv.bias", "conv2.1.conv.bias", "conv2.1.bias"):
+        return f"{base}/conv2/b", VEC
+    if re.match(r"^conv2\.0\.(weight|weight_flip)$", rest):
+        return None, SKIP
+    return None, UNKNOWN
+
+
+def gan_key(key: str, part: str):
+    """(JAX flat key, kind) of a reference state-dict name of ``part``
+    (``"generator"`` for a StyledGenerator, ``"discriminator"``); the
+    DataParallel ``module.`` prefix is dropped."""
+    if key.startswith("module."):
+        key = key[len("module."):]
+    return (_gen_key if part == "generator" else _disc_key)(key)
+
+
+def _gan_part(module) -> str:
+    return "generator" if hasattr(module, "style") else "discriminator"
+
+
+def _gan_params(module):
+    part = _gan_part(module)
+    out = []
+    for name, p in module.named_parameters():
+        key, kind = gan_key(name, part)
+        if key is None:
+            raise KeyError(f"no JAX path for the StyleGAN parameter {name}")
+        out.append((key, kind, p))
+    return out
+
+
+def gan_flat_from_module(module, value=None) -> dict:
+    """A StyledGenerator or Discriminator -> ``{JAX flat key: float32
+    array in the JAX layout}``. ``value(param)`` picks another tensor of
+    each parameter's shape (a gradient, an Adam moment)."""
+    return {key: np.array(gan_to_jax(
+        (p if value is None else value(p)).detach().to("cpu", torch.float32)
+        .numpy(), kind), np.float32, order="C")
+        for key, kind, p in _gan_params(module)}
+
+
+def load_gan_flat(module, flat: dict, setter=None):
+    """Overlay JAX-layout arrays onto ``module``'s parameters (or, with
+    ``setter(param, tensor)``, onto another per-parameter state); a key
+    that is missing or whose shape differs is left alone. Returns
+    ``(loaded, total)``."""
+    loaded = 0
+    params = _gan_params(module)
+    with torch.no_grad():
+        for key, kind, p in params:
+            v = flat.get(key)
+            if v is None:
+                continue
+            t = torch.from_numpy(np.array(gan_to_torch(v, kind), np.float32))
+            if tuple(t.shape) != tuple(p.shape):
+                continue
+            t = t.to(p.device, p.dtype)
+            if setter is None:
+                p.copy_(t)
+            else:
+                setter(p, t)
+            loaded += 1
+    return loaded, len(params)
+
+
+def gan_adam_to_flat(module, optimizer):
+    """``(count, mu, nu)`` of a ``torch.optim.Adam`` over ``module``'s
+    parameters in optax's layout: the step count as int32 and each moment
+    as :func:`gan_flat_from_module` gives it (zero where no state)."""
+    def moment(key):
+        def get(p):
+            st = optimizer.state.get(p, {})
+            return st[key] if key in st else torch.zeros_like(p)
+        return get
+
+    steps = [int(st["step"]) for st in optimizer.state.values()
+             if "step" in st]
+    return (np.int32(max(steps) if steps else 0),
+            gan_flat_from_module(module, moment("exp_avg")),
+            gan_flat_from_module(module, moment("exp_avg_sq")))
+
+
+def load_gan_adam(module, optimizer, count, mu: dict, nu: dict):
+    """Set the Adam state of ``module``'s parameters from optax's layout.
+    ``count`` None keeps the step counts; a moment missing from ``mu`` /
+    ``nu`` keeps its current value. Returns the number of leaves set
+    (the count included)."""
+    for p in module.parameters():
+        st = optimizer.state.setdefault(p, {})
+        st.setdefault("step", torch.tensor(0.0))
+        st.setdefault("exp_avg", torch.zeros_like(p))
+        st.setdefault("exp_avg_sq", torch.zeros_like(p))
+    n = 0
+    if count is not None:
+        for p in module.parameters():
+            optimizer.state[p]["step"] = torch.tensor(
+                float(np.asarray(count)), dtype=torch.float32)
+        n += 1
+    for name, flat in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        def put(p, t, name=name):
+            optimizer.state[p][name] = t.contiguous()
+        n += load_gan_flat(module, flat, setter=put)[0]
+    return n

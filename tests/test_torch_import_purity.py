@@ -1,12 +1,13 @@
 """The port imports no JAX and touches no device at import.
 
 An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
-the JAX package, and scikit-learn, pandas and matplotlib, which the
-machine with the card does not have; a fresh interpreter that imports the
+the JAX package, and scikit-learn and pandas, which the machine with the
+card does not have; matplotlib and Pillow, which it need not have, only
+inside a function body and a ``try`` that catches their absence (as
+``utils/tb.py`` imports tensorboard). A fresh interpreter that imports the
 whole port must leave all of them out of ``sys.modules``, and tensorboard
-too (``utils/tb.py`` imports it only inside its guarded constructor), CUDA
-uninitialised, Triton unloaded and no kernel or native library built
-(registering the pool's ``torch.library`` op builds nothing)."""
+too, CUDA uninitialised, Triton unloaded and no kernel or native library
+built (registering the pool's ``torch.library`` op builds nothing)."""
 
 import ast
 import os
@@ -19,7 +20,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
 JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
 FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "gbmnet")
-NOT_ON_THE_CARD = ("sklearn", "pandas", "matplotlib")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "matplotlib", "PIL")
+# imported only inside a function, in a try that catches their absence
+GUARDED = ("matplotlib", "PIL")
 
 
 def _port_files():
@@ -30,20 +33,59 @@ def _port_files():
     return sorted(out)
 
 
+def _roots(node):
+    if isinstance(node, ast.Import):
+        return [alias.name.split(".")[0] for alias in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module.split(".")[0]]
+    return []
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+        yield from _roots(node)
+
+
+def _catches_absence(handler):
+    names = ([handler.type] if not isinstance(handler.type, ast.Tuple)
+             else handler.type.elts) if handler.type is not None else []
+    return handler.type is None or any(
+        isinstance(n, ast.Name) and n.id in ("ImportError", "Exception",
+                                             "ModuleNotFoundError")
+        for n in names)
+
+
+def _unguarded_roots(path):
+    """The roots imported outside a function body, or outside the body of
+    a ``try`` that catches their absence, in that function."""
+    out = []
+
+    def visit(node, in_fn, guarded):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef))
+            g = guarded and not isinstance(child, (ast.FunctionDef,
+                                                   ast.AsyncFunctionDef))
+            if (isinstance(node, ast.Try) and child in node.body
+                    and any(_catches_absence(h) for h in node.handlers)):
+                g = in_fn
+            if not (fn and g):
+                out.extend(_roots(child))
+            visit(child, fn, g)
+
+    visit(ast.parse(open(path).read(), path), False, False)
+    return out
 
 
 def test_port_has_modules_to_scan():
     names = {os.path.relpath(p, os.path.join(_REPO, PORT))
              for p in _port_files()}
-    for must in ("ops/gated_pool.py", "parallel/inference.py",
+    for must in ("models/stylegan.py", "train/gan.py",
+                 "data/gan_dataset.py", "train/gan_generate.py",
+                 "models/disc_extractor.py", "models/blocks.py",
+                 "train/classify_legacy.py", "train/heatmap.py",
+                 "ops/gated_pool.py", "parallel/inference.py",
                  "models/attention_mil.py", "data/roibuilder.py",
                  "ops/u8_stem.py", "data/native.py", "train/serve.py",
                  "train/checkpoint.py", "train/classify.py",
@@ -67,8 +109,21 @@ def test_module_imports_no_jax(path):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, _REPO))
 def test_module_imports_nothing_the_card_machine_lacks(path):
-    bad = sorted(set(_imported_roots(path)) & set(NOT_ON_THE_CARD))
+    never = set(NOT_ON_THE_CARD) - set(GUARDED)
+    bad = sorted(set(_imported_roots(path)) & never)
+    bad += sorted(set(_unguarded_roots(path)) & set(GUARDED))
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_guard_rule_sees_an_unguarded_import(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import matplotlib\n"
+                   "def f():\n    from PIL import Image\n"
+                   "def g():\n    try:\n        import PIL\n"
+                   "    except ImportError:\n        return None\n"
+                   "try:\n    import matplotlib.pyplot\n"
+                   "except ImportError:\n    pass\n")
+    assert _unguarded_roots(str(src)) == ["matplotlib", "PIL", "matplotlib"]
 
 
 _PROBE = f"""
@@ -85,6 +140,10 @@ from {PORT}.ops import quant
 from {PORT}.data import build_caches
 from {PORT} import deploy
 from {PORT}.utils import torch_interop
+from {PORT}.models import blocks, disc_extractor, stylegan
+from {PORT}.data import gan_dataset
+from {PORT}.train import classify_legacy, gan, gan_generate, heatmap
+from {PORT}.utils import helpers
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules

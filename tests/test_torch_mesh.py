@@ -196,8 +196,9 @@ def test_graft_entry_forward_on_the_cpu():
     y_pred, loss, aterm = fn(*args)
     assert tuple(y_pred.shape) == (1, 3) and tuple(aterm.shape) == (3, 64)
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        graft_entry.dryrun_multichip_gan(2)
+    # the StyleGAN half of the dry run runs on gloo ranks
+    # (tests/test_torch_gan_mesh.py)
+    assert callable(graft_entry.dryrun_multichip_gan)
 
 
 def test_graft_entry_dryrun_on_two_gloo_ranks():

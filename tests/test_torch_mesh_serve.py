@@ -14,6 +14,7 @@ single-rank daemon's to 1e-5 (the rows carry 6 decimals)."""
 import csv
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -85,10 +86,12 @@ def test_classify_mesh_matches_one_rank(cohort):
     assert sb["valid_streamed_bags"] == sa["valid_streamed_bags"] == 1
     assert sb["train_acc"] == sa["train_acc"]
     # rank 0 alone wrote the run: the same files (one split file, whose
-    # name carries the time of day)
+    # name carries the time of day; the metric curves, drawn where
+    # matplotlib is installed, carry the run's tag)
 
     def names(run):
-        return sorted("split" if f.startswith("training_validation") else f
+        return sorted("split" if f.startswith("training_validation")
+                      else re.sub(r"_tag\w+\.pdf$", "_tag.pdf", f)
                       for f in os.listdir(run))
 
     assert names(mesh) == names(one)
