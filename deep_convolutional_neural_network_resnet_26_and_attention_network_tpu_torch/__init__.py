@@ -16,6 +16,6 @@ Entry points run on the CUDA device unless the caller passes
 imports no JAX and builds nothing.
 """
 
-from . import data, models, ops, parallel, train, utils  # noqa: F401
+from . import data, interpret, models, ops, parallel, train, utils  # noqa: F401
 
 __version__ = "0.1.0"

@@ -114,11 +114,12 @@ class BasicBlock(nn.Module):
             o, i, _, _ = self.downsample[0].weight.shape
             self.downsample[0].weight.copy_(I.conv_kernel(generator, 1, 1, i, o))
 
-    def forward(self, x, compute_dtype=None):
+    def forward(self, x, compute_dtype=None, act_fn=None):
+        act = act_fn or N.leaky_relu
         out = N.conv2d_nchw(x, self.conv1.weight, self.conv1.bias,
                             stride=self.stride, padding=1,
                             compute_dtype=compute_dtype)
-        out = N.leaky_relu(out)
+        out = act(out)
         out = N.conv2d_nchw(out, self.conv2.weight, self.conv2.bias,
                             stride=1, padding=1, compute_dtype=compute_dtype)
         if self.downsample is not None:
@@ -127,7 +128,7 @@ class BasicBlock(nn.Module):
                                      compute_dtype=compute_dtype)
         else:
             identity = x
-        return N.leaky_relu(out + identity)
+        return act(out + identity)
 
 
 class ResNet26(nn.Module):
@@ -169,7 +170,7 @@ class ResNet26(nn.Module):
             for block in stage:
                 block.reset_parameters(generator)
 
-    def _stem(self, x_nhwc, compute_dtype, stem):
+    def _stem(self, x_nhwc, compute_dtype, stem, act=N.leaky_relu):
         w, b = self.conv1.weight, self.conv1.bias
         if stem == "s2d" and x_nhwc.shape[1] % 2 == 0 \
                 and x_nhwc.shape[2] % 2 == 0:
@@ -182,28 +183,31 @@ class ResNet26(nn.Module):
         else:
             h = N.conv2d_nchw(x_nhwc.permute(0, 3, 1, 2), w, b, stride=2,
                               padding=3, compute_dtype=compute_dtype)
-        return F.max_pool2d(N.leaky_relu(h), 3, 2, 1)
+        return F.max_pool2d(act(h), 3, 2, 1)
 
     def forward(self, x, *, compute_dtype=None, taps: bool = False,
-                stem: str = "conv7", remat: bool = False):
+                stem: str = "conv7", remat: bool = False, act_fn=None):
         """x [N, H, W, 3] -> [N, embed_dim]. ``taps=True`` also returns the
         ordered NHWC activations 'stem', 'stage1'..'stage4' and 'pool'.
         ``stem="s2d"`` computes the stem as space-to-depth + conv4x4 (the
         same sum of products; conv7 for odd sizes). ``remat=True`` keeps
         only each block's input for the backward pass and recomputes the
-        rest there (a no-op without autograd)."""
+        rest there (a no-op without autograd). ``act_fn`` replaces every
+        LeakyReLU (the stem's and the blocks'), as the JAX package's
+        ``act_fn`` does; guided backprop passes its guided activation."""
         x = x.contiguous()
         acts = {}
-        h = self._stem(x, compute_dtype, stem)
+        act = act_fn or N.leaky_relu
+        h = self._stem(x, compute_dtype, stem, act)
         if taps:
             acts["stem"] = h.permute(0, 2, 3, 1)
         for s, stage in enumerate(self.stages()):
             for block in stage:
                 if remat and torch.is_grad_enabled():
-                    h = checkpoint(block, h, compute_dtype,
+                    h = checkpoint(block, h, compute_dtype, act_fn,
                                    use_reentrant=False)
                 else:
-                    h = block(h, compute_dtype)
+                    h = block(h, compute_dtype, act_fn)
             if taps:
                 acts[f"stage{s + 1}"] = h.permute(0, 2, 3, 1)
         h = h.mean(dim=(2, 3))
@@ -226,7 +230,7 @@ def init_resnet26(generator, *, embed_dim: int = EMBED_DIM,
 
 
 def apply_resnet26(model, x, *, compute_dtype=None, taps: bool = False,
-                   stem: str = "conv7", remat: bool = False):
+                   act_fn=None, stem: str = "conv7", remat: bool = False):
     """Forward: x [N, H, W, 3] -> embeddings [N, embed_dim]."""
     return model(x, compute_dtype=compute_dtype, taps=taps, stem=stem,
-                 remat=remat)
+                 remat=remat, act_fn=act_fn)

@@ -24,7 +24,29 @@ from .collectives import all_reduce_, all_reduce_sum
 LEAKY_SLOPE = 0.1  # reference uses LeakyReLU(0.1) everywhere (gbm/model.py:25)
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` whose derivative at 0 is 1, as that of the JAX
+    package's ``where(x >= 0, x, slope * x)``; PyTorch's own takes the
+    slope there, which moves a gradient wherever a pre-activation is
+    exactly 0 (a black tile through zero biases)."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope):
+        ctx.save_for_backward(x)
+        ctx.negative_slope = negative_slope
+        return F.leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.negative_slope), None
+
+
 def leaky_relu(x, negative_slope: float = LEAKY_SLOPE):
+    """LeakyReLU; under autograd with the JAX package's derivative at 0
+    (:class:`_LeakyReLU`), otherwise PyTorch's single kernel."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, negative_slope)
     return F.leaky_relu(x, negative_slope)
 
 

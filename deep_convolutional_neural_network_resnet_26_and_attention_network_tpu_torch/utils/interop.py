@@ -33,18 +33,37 @@ and :func:`gan_adam_to_flat` / :func:`load_gan_adam` do the same for a
 ``torch.optim.Adam`` in optax's ``ScaleByAdamState`` layout. The GAN
 checkpoints (``train/gan.py``) and the reference interchange
 (``utils/torch_interop.py``) both go through them.
+
+The auxiliary models (``models/alt_resnet.py``, ``wae.py``, ``unet.py``):
+:func:`aux_module_from_jax` builds the port's module from the JAX
+package's tree of ``init_resnet``, ``init_encoder``, ``init_decoder``,
+``init_wae_discriminator``, ``init_latent_unet`` or
+``init_cluster_layer`` (the module's configuration read off the leaves'
+shapes) and :func:`aux_params_from_module` is its inverse. A JAX path
+names the module's parameter (``down/0/conv1/w`` ->
+``down.0.conv1.weight``; ``bn/gamma`` -> ``bn.weight``), but for the
+ResNet's torchvision names (``layers/1/0/downsample/w`` ->
+``layer2.0.downsample.0.weight``) and the critic's list
+(``3/w`` -> ``layers.3.weight``); a transposed conv's HWIO kernel becomes
+``ConvTranspose2d``'s ``[in, out, kh, kw]``.
 """
 
+import math
 import re
 
 import numpy as np
 import torch
+
+from .._device import resolve_device
+from ..models import alt_resnet, unet, wae
 
 
 def _t(x, layout=None):
     a = np.asarray(x, np.float32)
     if layout == "conv":
         a = np.transpose(a, (3, 2, 0, 1))
+    elif layout == "upconv":
+        a = np.transpose(a, (2, 3, 0, 1))
     elif layout == "lin":
         a = a.T
     return torch.from_numpy(np.array(a, np.float32, order="C"))
@@ -105,6 +124,8 @@ def _np(t, layout=None):
     a = t.detach().to("cpu", torch.float32).numpy()
     if layout == "conv":
         a = np.transpose(a, (2, 3, 1, 0))
+    elif layout == "upconv":
+        a = np.transpose(a, (2, 3, 0, 1))
     elif layout == "lin":
         a = a.T
     return np.array(a, np.float32, order="C")
@@ -430,3 +451,157 @@ def load_gan_adam(module, optimizer, count, mu: dict, nu: dict):
             optimizer.state[p][name] = t.contiguous()
         n += load_gan_flat(module, flat, setter=put)[0]
     return n
+
+
+# ----------------------------------------------------------- aux models
+_LEAF = {"w": "weight", "b": "bias", "gamma": "weight", "beta": "bias",
+         "centers": "centers"}
+
+
+AUX_KINDS = {"alt_resnet": alt_resnet.ResNet, "encoder": wae.Encoder,
+             "decoder": wae.Decoder,
+             "wae_discriminator": wae.WAEDiscriminator,
+             "latent_unet": unet.LatentUNet, "cluster": unet.ClusterLayer}
+
+
+def _leaves(tree, path=()):
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree))
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _aux_layout(path, ndim):
+    if path[-1] not in ("w", "weight"):
+        return None
+    if ndim == 4:
+        return "upconv" if "upconv" in path else "conv"
+    return "lin" if ndim == 2 else None
+
+
+def _aux_name(kind, path):
+    """A JAX path of ``kind``'s tree -> the port's parameter name."""
+    p = list(path)
+    if kind == "alt_resnet" and p[0] == "layers":
+        p = [f"layer{p[1] + 1}", p[2]] + p[3:]
+        if p[2] == "downsample":
+            p.insert(3, 0)
+    elif kind == "wae_discriminator":
+        p = ["layers"] + p
+    p[-1] = _LEAF[p[-1]]
+    return ".".join(map(str, p))
+
+
+def _aux_path(kind, name):
+    """The inverse of :func:`_aux_name`."""
+    p = [int(x) if x.isdigit() else x for x in name.split(".")]
+    if kind == "alt_resnet" and str(p[0]).startswith("layer"):
+        p = ["layers", int(p[0][5:]) - 1] + p[1:]
+        if p[3] == "downsample":
+            del p[4]
+    elif kind == "wae_discriminator":
+        p = p[1:]
+    bn = len(p) > 1 and str(p[-2]).startswith("bn")
+    p[-1] = {"weight": "gamma" if bn else "w",
+             "bias": "beta" if bn else "b"}.get(p[-1], p[-1])
+    return tuple(p)
+
+
+def _side(flat, channels):
+    return int(round(math.sqrt(flat / channels)))
+
+
+def _aux_config(kind, tree):
+    """The constructor keywords of ``kind``'s module, read off the JAX
+    tree's shapes."""
+    if kind == "alt_resnet":
+        return {"layers": [len(s) for s in tree["layers"]],
+                "num_classes": np.shape(tree["fc"]["w"])[1],
+                "widths": [np.shape(s[0]["conv1"]["w"])[3]
+                           for s in tree["layers"]]}
+    if kind == "encoder":
+        ch = tuple(tuple(np.shape(d["conv1"]["w"])[2:])
+                   for d in tree["down"])
+        return {"channels": ch,
+                "latent_size": _side(np.shape(tree["fc"]["w"])[0],
+                                     ch[-1][1])}
+    if kind == "decoder":
+        ch = tuple(tuple(np.shape(u["upconv"]["w"])[3:1:-1])
+                   for u in reversed(tree["up"]))
+        return {"channels": ch,
+                "latent_size": _side(np.shape(tree["fc"]["w"])[1],
+                                     ch[-1][1])}
+    if kind == "wae_discriminator":
+        return {"dims": (np.shape(tree[0]["w"])[0],)
+                + tuple(np.shape(p["w"])[1] for p in tree)}
+    if kind == "latent_unet":
+        down, up = tree["down"], tree["up"]
+        w0 = np.shape(down[0]["conv1"]["w"])
+        wl = np.shape(down[-1]["conv1"]["w"])
+        flat, latent_dim = np.shape(tree["fcl"]["w"])
+        concat = [i for i, u in enumerate(up)
+                  if np.shape(u["conv1"]["w"])[2]
+                  == 2 * np.shape(u["conv1"]["w"])[3]]
+        return {"in_channels": w0[2], "start_filts": w0[3],
+                "out_channels": np.shape(tree["final"]["w"])[3],
+                "depth": len(down),
+                "latent_channels": np.shape(down[0]["bottle_in"]["w"])[3],
+                "input_size": _side(flat, wl[3]) * 2 ** (len(down) - 1),
+                "latent_dim": latent_dim,
+                "concat_layer": concat[0] if concat else -1}
+    if kind == "cluster":
+        n, dim = np.shape(tree["centers"])
+        return {"n_clusters": n, "dim": dim}
+    raise ValueError(f"unknown auxiliary model {kind!r}; one of "
+                     f"{sorted(AUX_KINDS)}")
+
+
+def aux_module_from_jax(kind: str, tree, device=None) -> torch.nn.Module:
+    """The port's module of ``kind`` (``"alt_resnet"``, ``"encoder"``,
+    ``"decoder"``, ``"wae_discriminator"``, ``"latent_unet"``,
+    ``"cluster"``) holding the JAX package's parameters ``tree`` (numpy
+    leaves), on ``device`` (the card by default), loaded strictly."""
+    cfg = _aux_config(kind, tree)
+    model = AUX_KINDS[kind](device="meta", **cfg).to_empty(
+        device=resolve_device(device))
+    sd = {_aux_name(kind, path): _t(v, _aux_layout(path, np.ndim(v)))
+          for path, v in _leaves(tree)}
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def aux_params_from_module(model: torch.nn.Module, value=None):
+    """The inverse of :func:`aux_module_from_jax`: the JAX package's tree
+    of float32 numpy arrays (lists where JAX has lists). ``value(param)``
+    picks another tensor of each parameter's shape (a gradient)."""
+    (kind,) = [k for k, cls in AUX_KINDS.items()
+               if type(model) is cls]
+    flat = {}
+    for name, p in model.named_parameters():
+        path = _aux_path(kind, name)
+        flat[path] = _np(p if value is None else value(p),
+                         _aux_layout(path, p.ndim))
+    return _nest(flat)
+
+
+def _nest(flat: dict):
+    """``{path tuple: leaf}`` -> nested dicts, a dict of 0..n-1 keys
+    becoming a list."""
+    root = {}
+    for path, v in flat.items():
+        d = root
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+
+    def fix(d):
+        if not isinstance(d, dict):
+            return d
+        d = {k: fix(v) for k, v in d.items()}
+        if all(isinstance(k, int) for k in d):
+            return [d[i] for i in range(len(d))]
+        return d
+
+    return fix(root)

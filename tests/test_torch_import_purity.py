@@ -1,8 +1,8 @@
 """The port imports no JAX and touches no device at import.
 
 An AST scan of every module of the port refuses ``jax``, ``jaxlib`` and
-the JAX package, and scikit-learn and pandas, which the machine with the
-card does not have; matplotlib and Pillow, which it need not have, only
+the JAX package, and scikit-learn, pandas and cv2, which the machine with
+the card does not have; matplotlib and Pillow, which it need not have, only
 inside a function body and a ``try`` that catches their absence (as
 ``utils/tb.py`` imports tensorboard). A fresh interpreter that imports the
 whole port must leave all of them out of ``sys.modules``, and tensorboard
@@ -20,7 +20,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
 JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
 FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "gbmnet")
-NOT_ON_THE_CARD = ("sklearn", "pandas", "matplotlib", "PIL")
+NOT_ON_THE_CARD = ("sklearn", "pandas", "cv2", "matplotlib", "PIL")
 # imported only inside a function, in a try that catches their absence
 GUARDED = ("matplotlib", "PIL")
 
@@ -95,8 +95,29 @@ def test_port_has_modules_to_scan():
                  "utils/tb.py", "data/build_caches.py", "deploy.py",
                  "utils/torch_interop.py", "parallel/mesh.py",
                  "parallel/shard_pool.py", "ops/collectives.py",
-                 "graft_entry.py"):
+                 "graft_entry.py", "models/alt_resnet.py", "models/wae.py",
+                 "models/unet.py", "data/stain.py", "data/cell_datasets.py",
+                 "interpret/__init__.py", "interpret/gradcam.py",
+                 "interpret/guided.py", "interpret/misc.py",
+                 "interpret/optimize.py", "interpret/saliency.py"):
         assert must in names
+
+
+# the JAX package's modules whose counterparts carry other names: the
+# Pallas kernels (ops/gated_pool.py and ops/u8_stem.py over csrc/) and the
+# XLA compilation cache (the port's kernels build into _build/)
+COUNTERPART_ELSEWHERE = ("ops/pallas_pool.py", "ops/pallas_stem.py",
+                         "utils/compcache.py")
+
+
+def test_every_jax_module_has_a_counterpart():
+    root = os.path.join(_REPO, JAX_PKG)
+    jax_modules = {os.path.relpath(os.path.join(d, f), root)
+                   for d, _, files in os.walk(root)
+                   for f in files if f.endswith(".py")}
+    ours = {os.path.relpath(p, os.path.join(_REPO, PORT))
+            for p in _port_files()}
+    assert sorted(jax_modules - ours) == sorted(COUNTERPART_ELSEWHERE)
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -144,6 +165,10 @@ from {PORT}.models import blocks, disc_extractor, stylegan
 from {PORT}.data import gan_dataset
 from {PORT}.train import classify_legacy, gan, gan_generate, heatmap
 from {PORT}.utils import helpers
+from {PORT} import interpret
+from {PORT}.interpret import gradcam, guided, misc, optimize, saliency
+from {PORT}.models import alt_resnet, unet, wae
+from {PORT}.data import cell_datasets, stain
 import torch
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert "{JAX_PKG}" not in sys.modules
