@@ -59,7 +59,16 @@ its cluster layer at the reference's sizes, each against the same modules
 on the CPU (ill-conditioned float32 results against the CPU's float64),
 the cost of the port's LeakyReLU under autograd against PyTorch's, and
 the stain and cell datasets on files the script writes (Pillow and the
-``csv`` module: the card's machine has no cv2 and no pandas).
+``csv`` module: the card's machine has no cv2 and no pandas). After the
+GAN's step costs, the cost of its LeakyReLU(0.2) with the JAX package's
+derivative at 0 against PyTorch's (32 and 512 px). Then ``learn``: the
+port's convergence tools (``tools/torch_convergence_run.py``, the
+full-width classifier for 30 epochs at 300 px, whose last train loss
+must be below its first and whose held-out slide accuracy must be 1.0,
+its pool launches counted and a sample held to the plain pool; and
+``tools/torch_gan_convergence_run.py``, the full-width StyleGAN at 8 px
+in f32, which must meet the band-distance criteria, and in bf16,
+recorded).
 ``chip_smoke.py --mesh-cards N``, on a machine with
 N cards, runs only the mesh's checks with one rank a card over NCCL,
 then the CLIs with ``--mesh N``. A kernel's device time is per call,
@@ -3003,17 +3012,20 @@ GAN_TOL = 1e-4                   # card vs CPU, f32 with TF32 off
 
 
 @contextlib.contextmanager
-def pool_spy(limit=1):
-    """Record the arguments of the first ``limit`` calls of the pool's
-    forward and backward wrappers (the calls still launch and count)."""
+def pool_spy(limit=1, every=1):
+    """Record the arguments of ``limit`` calls of the pool's forward and
+    backward wrappers, each kind's calls 0, ``every``, 2 ``every``, ...
+    (the calls still launch and count)."""
     seen = {"fwd": [], "bwd": []}
+    calls = {"fwd": 0, "bwd": 0}
     real_f = gated_pool.gated_attention_pool
     real_b = gated_pool.gated_attention_pool_backward
 
     def keep(kind, args):
-        if len(seen[kind]) < limit:
+        if len(seen[kind]) < limit and calls[kind] % every == 0:
             seen[kind].append([None if a is None else a.detach().clone()
                                for a in args])
+        calls[kind] += 1
 
     def fwd(*args):
         keep("fwd", args)
@@ -3448,23 +3460,15 @@ def _kind(name):
     return "other"
 
 
-def gan_step_costs(card):
-    """One full-width 32 px step (batch 256, critic then generator) timed
-    in turns in three settings: the trainer's on the card (TF32
-    convolutions, cuDNN's deterministic algorithms), strict f32, and TF32
-    without the determinism; then one traced critic step of the trainer's
-    setting: its device time by kernel kind, the double backward's share
-    (the device time under ``ConvolutionBackwardBackward0``) and the
-    device's busy share of the step's wall time."""
-    import copy
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _gan_steps(step, B):
+    """A full-width critic step and a critic + generator step (Adam and the
+    EMA, as the trainer takes them) at ``step``'s resolution, on a seeded
+    random batch of ``B``, drawing each step's latents and noise."""
     g, d = _gan_nets()
-    step, B = 3, 256
     gen = torch.Generator(device="cuda").manual_seed(7)
-    real = torch.rand((B, 3, 32, 32), generator=gen, device="cuda") * 2 - 1
+    size = 4 * 2 ** step
+    real = torch.rand((B, 3, size, size), generator=gen,
+                      device="cuda") * 2 - 1
     g_opt, d_opt = gan.make_optimizers(g, d)
     ema = copy.deepcopy(g).requires_grad_(False)
     d_step, g_step = gan.make_d_step(step), gan.make_g_step(step)
@@ -3479,6 +3483,26 @@ def gan_step_costs(card):
         zs = torch.randn((2, B, 512), generator=gen, device="cuda")
         g_step(g, d, g_opt, ema, zs, GAN_SEL, 1.0, 1e-3,
                gan.draw_g(gen, d, B, step))
+
+    return critic, both
+
+
+def gan_step_costs(card):
+    """One full-width 32 px step (batch 256, critic then generator) timed
+    in turns in three settings: the trainer's on the card (TF32
+    convolutions, cuDNN's deterministic algorithms), strict f32, and TF32
+    without the determinism; then one traced critic step of the trainer's
+    setting: its device time by kernel kind, the double backward's share
+    (the device time under ``ConvolutionBackwardBackward0``) and the
+    device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B = 256
+    critic, step_both = _gan_steps(3, B)
+
+    def both():
+        step_both()
         torch.cuda.synchronize()
 
     cudnn = torch.backends.cudnn
@@ -4093,6 +4117,115 @@ def aux_phase(ckpt, one, card):
 
 
 
+def gan_lrelu_ab(card, cases=((3, 256, 2), (7, 16, 1))):
+    """The cost of the StyleGAN's LeakyReLU(0.2) with the JAX package's
+    derivative 1 at 0 (``ops/nn.leaky_relu`` under autograd, ROADMAP C.2)
+    against PyTorch's own (the slope at 0), on one full-width critic +
+    generator step at 32 px (batch 256) and at 512 px (batch 16), the
+    trainer's setting (TF32 convolutions, cuDNN's deterministic
+    algorithms): CUDA events, torch, port, port, torch a round, each
+    measurement one warm step and the mean of two."""
+    ours = sg.leaky_relu
+
+    def torch_own(x, negative_slope):
+        return F.leaky_relu(x, negative_slope)
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic)
+    cudnn.allow_tf32, cudnn.deterministic = True, True
+    rows = []
+    try:
+        for step, B, rounds in cases:
+            _, both = _gan_steps(step, B)
+            times = {"torch": [], "port": []}
+            for _ in range(rounds):
+                for name in ("torch", "port", "port", "torch"):
+                    sg.leaky_relu = torch_own if name == "torch" else ours
+                    times[name].append(time_cuda(both, 2, warmup=1))
+            sg.leaky_relu = ours
+            med = {k: statistics.median(v) for k, v in times.items()}
+            rows.append({"resolution": 4 * 2 ** step, "batch": B,
+                         "ms_torch_leaky_relu": times["torch"],
+                         "ms_port_leaky_relu": times["port"],
+                         "median_ms": med,
+                         "port_over_torch": med["port"] / med["torch"]})
+            del both
+            torch.cuda.empty_cache()
+    finally:
+        sg.leaky_relu = ours
+        cudnn.allow_tf32, cudnn.deterministic = saved
+    emit({"phase": "gan_leaky_relu_ab", "width_mult": 1.0,
+          "conv_tf32": True, "cudnn_deterministic": True,
+          "step": "critic + generator", "by_resolution": rows, **card})
+
+
+LEARN_EPOCHS = 30                # the JAX convergence run's epochs
+LEARN_SPY = (10, 128)            # hold 10 pool calls, every 128th, to plain
+
+
+def learn_phase(card):
+    """ROADMAP A.15 and A.18 on the card, through the port's convergence
+    tools under PyTorch's defaults (TF32 convolutions), as a user runs
+    them: the classifier at full width (``tools/torch_convergence_run``:
+    30 epochs at 300 px on the JAX run's grating bags, bf16), which must
+    end with its last train loss below its first and held-out slide
+    accuracy 1.0, its pool launches counted and a sample of them held to
+    the plain pool; then the StyleGAN (``tools/torch_gan_convergence_run``:
+    2048 two-band images at 8 px, 30 epochs, batch 64, full width) in f32,
+    which must meet the JAX tool's band-distance criteria, and in bf16,
+    whose distance is recorded with the criteria met or not. Returns the
+    classifier run's pool counts and the worst held error."""
+    from tools import torch_convergence_run, torch_gan_convergence_run
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cache_dir = os.environ["CACHE_DIR"]  # the classifier tool sets its own
+    try:
+        zero_pool_counts()
+        limit, every = LEARN_SPY
+        with pool_spy(limit, every) as seen, \
+                contextlib.redirect_stdout(sys.stderr):
+            report = torch_convergence_run.run([
+                "--epochs", str(LEARN_EPOCHS),
+                "--out", os.path.join(CACHE, "learn_classifier")])
+        counts = pool_counts()
+        require_launched("learn_classifier", counts,
+                         ("LAUNCHES", "BWD_LAUNCHES"))
+        err = hold_spied("learn_classifier", seen)
+        emit({"phase": "learn_classifier", **report,
+              "criteria": "last train loss < first; held-out accuracy 1.0",
+              "pool_forward_launches": counts["LAUNCHES"],
+              "pool_backward_launches": counts["BWD_LAUNCHES"],
+              "held_calls": {k: len(v) for k, v in seen.items()},
+              "held_max_abs_err": err, "conv_tf32": True, **card})
+        gans = {}
+        for dtype in ("f32", "bf16"):
+            with contextlib.redirect_stdout(sys.stderr):
+                rec = torch_gan_convergence_run.run([
+                    "--compute_dtype", dtype,
+                    "--keep", os.path.join(CACHE, f"learn_gan_{dtype}")])
+            gans[dtype] = rec
+            emit({"phase": f"learn_gan_{dtype}", **rec,
+                  "criteria": "band_dist_generator < 0.15 and < 0.5 x "
+                              "band_dist_init",
+                  "criteria_met": rec["converged"],
+                  "secs_per_epoch": (rec["train_wall_secs"] / rec["epochs"]
+                                     if "train_wall_secs" in rec else None),
+                  "conv_tf32": True, **card})
+        if not gans["f32"]["converged"]:
+            raise AssertionError("the f32 StyleGAN missed the band-distance "
+                                 f"criteria: {gans['f32']}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        os.environ["CACHE_DIR"] = cache_dir
+    emit({"phase": "learn", "seconds": time.perf_counter() - t0, **card})
+    return counts, err
+
+
 def split_row(way, mesh_launches, max_err, times):
     """The kernels line's row of the split entries of the pool's forward or
     backward: their launches on the mesh paths (each path's own count,
@@ -4298,6 +4431,7 @@ def main():
         gan_parity(card)
         gan_ckpt = gan_train(card)
         gan_step_costs(card)
+        gan_lrelu_ab(card)
         legacy_train, legacy_test, legacy_err = legacy_phase(flags, gan_ckpt,
                                                              card)
         launches["legacy_train"] = legacy_train["LAUNCHES"]
@@ -4307,7 +4441,11 @@ def main():
         aux_counts, aux_err = aux_phase(ckpt, one, card)
         launches["aux_head_saliency"] = aux_counts["LAUNCHES"]
         bwd_launches_aux = aux_counts["BWD_LAUNCHES"]
-        max_err = max(max_err, fig_err, legacy_err, aux_err)
+        # the classifier and the StyleGAN trained to convergence
+        learn_counts, learn_err = learn_phase(card)
+        launches["learn_classifier"] = learn_counts["LAUNCHES"]
+        bwd_launches_learn = learn_counts["BWD_LAUNCHES"]
+        max_err = max(max_err, fig_err, legacy_err, aux_err, learn_err)
         mesh_launches, split_err, split_times = mesh_phase(one, big, card)
         mesh_launches.update(mesh_cli(1, flags, cli_serve_inputs(model,
                                                                  slides),
@@ -4343,8 +4481,8 @@ def main():
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
         "launches": (bwd_launches + bwd_profile + bwd_launches_legacy
-                     + bwd_launches_aux),
-        "max_abs_err": max(bwd_err, legacy_err, aux_err),
+                     + bwd_launches_aux + bwd_launches_learn),
+        "max_abs_err": max(bwd_err, legacy_err, aux_err, learn_err),
         **bwd_times[t_bwd], "library_ms": None,
         "shape": {"T": t_bwd, "K": 3, "O": 1, "cotangents": "dM"},
         "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
@@ -4353,7 +4491,8 @@ def main():
         "launches_by_path": {"train_classify": bwd_launches,
                              "train_profile": bwd_profile,
                              "legacy_train": bwd_launches_legacy,
-                             "aux_head_saliency": bwd_launches_aux}},
+                             "aux_head_saliency": bwd_launches_aux,
+                             "learn_classifier": bwd_launches_learn}},
         *[split_row(way, mesh_launches, split_err, split_times[way])
           for way in ("forward", "backward")]]})
     emit({"ok": True, "device": {"platform": "gpu",

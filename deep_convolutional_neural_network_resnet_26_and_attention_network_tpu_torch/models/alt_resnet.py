@@ -55,7 +55,7 @@ class BasicBlock(nn.Module):
             _kaiming_relu(generator, conv)
 
     def forward(self, x, compute_dtype=None):
-        out = F.relu(N.conv2d_nchw(x, self.conv1.weight, stride=self.stride,
+        out = N.relu(N.conv2d_nchw(x, self.conv1.weight, stride=self.stride,
                                    padding=1, compute_dtype=compute_dtype))
         out = N.conv2d_nchw(out, self.conv2.weight, stride=1, padding=1,
                             compute_dtype=compute_dtype)
@@ -63,7 +63,7 @@ class BasicBlock(nn.Module):
                                   stride=self.stride, padding=0,
                                   compute_dtype=compute_dtype)
                     if self.downsample is not None else x)
-        return F.relu(out + identity)
+        return N.relu(out + identity)
 
 
 class ResNet(nn.Module):
@@ -106,7 +106,7 @@ class ResNet(nn.Module):
     def forward(self, x, *, compute_dtype=None):
         h = N.conv2d_nchw(x.permute(0, 3, 1, 2), self.conv1.weight, stride=2,
                           padding=3, compute_dtype=compute_dtype)
-        h = F.max_pool2d(F.relu(h), 3, 2, 1)
+        h = F.max_pool2d(N.relu(h), 3, 2, 1)
         for stage in self.stages():
             for block in stage:
                 h = block(h, compute_dtype)

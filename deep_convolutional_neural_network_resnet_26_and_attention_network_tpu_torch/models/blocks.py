@@ -147,7 +147,7 @@ def init_tiny_extractor(generator, channels_out: int):
 def apply_tiny_extractor(params, x, channels_out: int):
     """x: [N, H, W, 3] -> [N, channels_out] (reference: nnBlocks.py:38-44;
     the stem uses ReLU, the blocks LeakyReLU(0.1))."""
-    h = torch.relu(N.conv2d(x, params["stem"]["w"], stride=2, padding=3))
+    h = N.relu(N.conv2d(x, params["stem"]["w"], stride=2, padding=3))
     h = N.max_pool(h, window=3, stride=2, padding=1)
     for p, (_, _, down) in zip(params["blocks"], TINY_SPECS):
         h = apply_conv_block(p, h, padding=0, downsample=down, max2d=down)

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.collectives import all_reduce_sum
+from ..ops.nn import leaky_relu
 
 # channel schedule for blocks at 4,8,16,32,64,128,256,512,1024 px
 # (reference: model.py:380-390,512-521)
@@ -62,7 +63,18 @@ def _scaled(width_mult: float, c: int) -> int:
 
 
 def lrelu(x):
-    return F.leaky_relu(x, LRELU_SLOPE)
+    """LeakyReLU(0.2) with the JAX package's derivative 1 at 0
+    (``ops/nn.leaky_relu``)."""
+    return leaky_relu(x, LRELU_SLOPE)
+
+
+class LeakyReLU(nn.Module):
+    """Parameter-free :func:`lrelu`, standing where the reference's
+    ``nn.LeakyReLU(0.2)`` stands so the Sequential indices (the
+    state-dict names) stay the reference's."""
+
+    def forward(self, x):
+        return lrelu(x)
 
 
 def equal_scale(fan_in: int) -> float:
@@ -335,7 +347,7 @@ class StyledGenerator(nn.Module):
         layers = [PixelNorm()]
         for _ in range(n_mlp):
             layers += [EqualLinear(style_dim, style_dim, device=device),
-                       nn.LeakyReLU(LRELU_SLOPE)]
+                       LeakyReLU()]
         self.style = nn.Sequential(*layers)
 
     @property
@@ -487,21 +499,21 @@ class ConvBlock(nn.Module):
         cin, cout, k1, p1, k2, p2, down, fused = spec
         self.conv1 = nn.Sequential(EqualConv2d(cin, cout, k1, p1,
                                                device=device),
-                                   nn.LeakyReLU(LRELU_SLOPE))
+                                   LeakyReLU())
         if down and fused:
             self.conv2 = nn.Sequential(
                 Blur(cout, device=device),
                 FusedDownsample(cout, cout, k2, p2, device=device),
-                nn.LeakyReLU(LRELU_SLOPE))
+                LeakyReLU())
         elif down:
             self.conv2 = nn.Sequential(
                 Blur(cout, device=device),
                 EqualConv2d(cout, cout, k2, p2, device=device),
-                nn.AvgPool2d(2), nn.LeakyReLU(LRELU_SLOPE))
+                nn.AvgPool2d(2), LeakyReLU())
         else:
             self.conv2 = nn.Sequential(
                 EqualConv2d(cout, cout, k2, p2, device=device),
-                nn.LeakyReLU(LRELU_SLOPE))
+                LeakyReLU())
 
     def forward(self, x, keep=None):
         """``keep``: this block's boolean dropout mask over conv1's output
@@ -524,7 +536,7 @@ class Discriminator(nn.Module):
         if from_rgb_activate:
             self.from_rgb = nn.ModuleList([
                 nn.Sequential(EqualConv2d(3, c, 1, device=device),
-                              nn.LeakyReLU(LRELU_SLOPE)) for c in rgb_out])
+                              LeakyReLU()) for c in rgb_out])
         else:
             self.from_rgb = nn.ModuleList([
                 EqualConv2d(3, c, 1, device=device) for c in rgb_out])

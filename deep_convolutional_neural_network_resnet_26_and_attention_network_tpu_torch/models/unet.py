@@ -70,7 +70,7 @@ def apply_cluster_layer(layer, x):
 
 
 def _relu_bn(x, layer, bn):
-    return bn(F.relu(conv(x, layer)))
+    return bn(N.relu(conv(x, layer)))
 
 
 class DownBlock(nn.Module):
@@ -185,7 +185,7 @@ def apply_latent_unet(model, x, *, generator=None, perturbation=False,
         if i == depth - model.concat_layer - 2:
             encoder_tap = tap
     flat = h.reshape(h.shape[0], -1)
-    latent_flat = F.relu(N.linear(flat, model.fcl.weight.T, model.fcl.bias))
+    latent_flat = N.relu(N.linear(flat, model.fcl.weight.T, model.fcl.bias))
     if early_stop:
         return h, latent_flat, encoder_tap
 
@@ -197,7 +197,7 @@ def apply_latent_unet(model, x, *, generator=None, perturbation=False,
     # at default arguments there too (the JAX package keeps it so)
     if perturbation and generator is not None and decoder_in is not None:
         decoder_in = smote_layer(decoder_in, generator)
-    g = F.relu(conv(latent, model.bottle_out))
+    g = N.relu(conv(latent, model.bottle_out))
     c = g.shape[-1]
     g = batch_norm_2d(g, torch.ones(c, device=g.device),
                       torch.zeros(c, device=g.device))

@@ -182,7 +182,7 @@ class Encoder(nn.Module):
             x = block(x, pooling=True,
                       masks=None if masks is None else masks[i])
         x = x.reshape(x.shape[0], -1)
-        return F.relu(N.linear(x, self.fc.weight.T, self.fc.bias))
+        return N.relu(N.linear(x, self.fc.weight.T, self.fc.bias))
 
 
 class Decoder(nn.Module):
@@ -200,7 +200,7 @@ class Decoder(nn.Module):
                             device=device)
 
     def forward(self, z):
-        x = F.relu(N.linear(z, self.fc.weight.T, self.fc.bias))
+        x = N.relu(N.linear(z, self.fc.weight.T, self.fc.bias))
         x = x.reshape(-1, self.latent_size, self.latent_size, self.cfinal)
         for block in self.up:
             x = block(x)
@@ -231,7 +231,7 @@ class WAEDiscriminator(nn.Module):
         for i, layer in enumerate(self.layers):
             h = N.linear(h, layer.weight.T, layer.bias)
             if i < last:
-                h = F.relu(h)
+                h = N.relu(h)
                 if masks is not None and i < self.N_DROPOUT:
                     h = drop(h, masks[i], 0.5)
         return torch.sigmoid(h)

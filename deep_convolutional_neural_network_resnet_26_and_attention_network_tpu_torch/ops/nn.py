@@ -50,6 +50,13 @@ def leaky_relu(x, negative_slope: float = LEAKY_SLOPE):
     return F.leaky_relu(x, negative_slope)
 
 
+def relu(x):
+    """ReLU as the JAX package's ``jnp.maximum(x, 0.0)``: one kernel, and
+    under autograd the derivative at 0 is 0.5 (``torch.maximum`` splits a
+    tie's gradient, as JAX does), where ``F.relu``'s is 0."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def _pairs(padding):
     """int | [(lo, hi), (lo, hi)] -> ((h_lo, h_hi), (w_lo, w_hi))."""
     if isinstance(padding, int):

@@ -49,6 +49,8 @@ SLIDES_AXIS = "slides"
 TILES_AXIS = "tiles"
 # a rank that waits this long in a collective raises instead of hanging
 DEFAULT_TIMEOUT_S = 1800.0
+# the timeout this process's default group was initialised with (init)
+_group_timeout_s = DEFAULT_TIMEOUT_S
 
 
 def slide_axis(n: int, slides: int | None = None) -> int:
@@ -73,7 +75,8 @@ class Mesh:
     device grid), its coordinates, its device, the backend, and the
     process groups of its tile axis (the ranks that share its bags) and of
     its slide axis (the ranks that hold the same tile share of other
-    bags)."""
+    bags), and the seconds a rank waits in a collective before it raises
+    (the group's timeout)."""
     shape: dict
     rank: int
     slide: int
@@ -82,6 +85,7 @@ class Mesh:
     backend: str
     tiles_group: object
     slides_group: object
+    timeout_s: float = DEFAULT_TIMEOUT_S
 
     @property
     def size(self) -> int:
@@ -138,7 +142,10 @@ def backend_for(devices) -> str:
 def init(world: int, rank: int, *, backend: str, init_method: str,
          timeout_s: float = DEFAULT_TIMEOUT_S):
     """Join the default process group as ``rank`` of ``world``, with an
-    explicit timeout so that a rank that dies makes the others raise."""
+    explicit timeout so that a rank that dies makes the others raise;
+    the meshes made over the group carry that timeout."""
+    global _group_timeout_s
+    _group_timeout_s = float(timeout_s)
     dist.init_process_group(
         backend=backend, init_method=init_method, world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -152,7 +159,8 @@ def make_mesh(n: int | None = None, *, slides: int | None = None,
     ranks may share a card, over gloo); by default rank r takes ``cuda:r``
     where there are cards, and raises when there are fewer than ``n``.
     Every rank must call this, in the same order as the other ranks' calls
-    (it creates the axis groups)."""
+    (it creates the axis groups). The mesh carries the timeout that
+    :func:`init` gave the group."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the process group: call "
                            "parallel.mesh.init (or use launch) first")
@@ -181,7 +189,7 @@ def make_mesh(n: int | None = None, *, slides: int | None = None,
     return Mesh(shape={SLIDES_AXIS: s, TILES_AXIS: t}, rank=rank,
                 slide=rank // t, tile=rank % t, device=devices[rank],
                 backend=dist.get_backend(), tiles_group=tiles_group,
-                slides_group=slides_group)
+                slides_group=slides_group, timeout_s=_group_timeout_s)
 
 
 def _to(tree, device):

@@ -42,7 +42,11 @@ its path (or a ``--batch`` group's paths) to the other ranks; every rank
 then takes its share of the slide's tiles (the streaming path spreads each
 chunk over every rank; a batch spreads its slides and tiles over the mesh),
 and rank 0 writes the row and the ``.dla`` maps. Every rank must succeed
-on a slide, or all of them count it as failed. ``--int8`` calibrates on
+on a slide, or all of them count it as failed. While rank 0 waits on
+host work (a first-sight slide's cache build, the prefetch queue, the
+idle wait between polls), it sends the others a ``("poll", None)`` every
+quarter of the group's timeout, so that no wait of theirs runs into it.
+``--int8`` calibrates on
 rank 0 and sends the scales to the others; ``--prewarm`` warms each card;
 ``--bundle`` refuses ``--mesh``, as in the JAX package. The device is an
 argument of :class:`SlideServer` and :func:`main` (the card by default),
@@ -55,6 +59,7 @@ Run::
 """
 
 import argparse
+from concurrent import futures
 import glob as globmod
 import os
 import signal
@@ -317,7 +322,8 @@ class SlideServer:
         name = builder.getname()
         if name in self.processed:
             return None
-        if "MISSING" in builder.params["status"] and not builder.build():
+        if ("MISSING" in builder.params["status"]
+                and not self._host_wait(builder.build)):
             print(f"serve: {name}: cache build failed, skipped",
                   file=sys.stderr)
             return False
@@ -371,6 +377,22 @@ class SlideServer:
         state = M.run_together(prepare, self.mesh, what="preparing a slide")
         return M.run_together(lambda: run(state), self.mesh,
                               what="classifying a slide")
+
+    def _host_wait(self, fn):
+        """``fn()``, host work on rank 0 (or the only rank). The other
+        ranks of a mesh wait for rank 0's next command in
+        ``broadcast_object``, under the group's timeout, so while ``fn``
+        runs (on a worker thread) rank 0 sends them a ``("poll", None)``
+        every quarter of that timeout; a cache build of any length then
+        keeps the mesh alive."""
+        if self.mesh is None:
+            return fn()
+        with futures.ThreadPoolExecutor(1, "serve-host") as pool:
+            job = pool.submit(fn)
+            while not futures.wait([job],
+                                   timeout=self.mesh.timeout_s / 4).done:
+                M.broadcast_object(("poll", None), self.mesh)
+            return job.result()
 
     def _lead(self, cmd, prepare, run):
         """Rank 0 (or the only rank): send ``cmd`` to the other ranks,
@@ -520,7 +542,8 @@ class SlideServer:
     def _prepare(self, path):
         """Host-side prep of ONE slide: builder, cache build (decode +
         tissue filter), transform arming and a readahead hint on the raw
-        cache. Under ``--io_depth`` it runs on the producer thread, so it
+        cache. Under ``--io_depth`` it runs on the producer thread (on a
+        mesh, without it, on :meth:`_host_wait`'s worker), so it
         writes no daemon state (it only reads ``self.processed``, which
         the consumer checks again before any artifact write). Returns
         ``(path, name, builder, err)``; builder None with err None means
@@ -580,7 +603,10 @@ class SlideServer:
         items = map(self._prepare, paths)
         if self.args.io_depth > 0:
             items = prefetch_iter(items, depth=self.args.io_depth)
-        for path, name, builder, err in items:
+        items = iter(items)
+        while (item := self._host_wait(lambda: next(items, None))) \
+                is not None:
+            path, name, builder, err = item
             if self._stop_event.is_set():
                 # leave the rest of the backlog for the next start; the
                 # queued small-slide group below still flushes
@@ -694,7 +720,8 @@ class SlideServer:
                       f"{n_failed} failed); exiting (--once)")
                 return 0 if n_failed == 0 else 1
             # interruptible poll: a stop during the wait exits at once
-            self._stop_event.wait(timeout=self.args.poll_secs)
+            self._host_wait(
+                lambda: self._stop_event.wait(timeout=self.args.poll_secs))
 
 
 def main(argv=None, *, device=None) -> int:

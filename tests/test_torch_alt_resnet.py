@@ -148,3 +148,64 @@ def test_from_pretrained_offline_error_and_delegation(monkeypatch):
                                              url="file:///nowhere.pth")
     assert loaded == ["conv1.weight"]
     assert float(out.conv1.weight.detach().abs().max()) == 0.0
+
+
+def _grad_close(got, want, tol=1e-5):
+    got, want = np.asarray(got.detach()), np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(1.0, float(np.abs(want).max())), err
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    jp = _tree(jalt.init_resnet(jax.random.PRNGKey(4), [1, 1, 1, 1],
+                                num_classes=5, widths=(8, 8, 8, 8)))
+    return jp, interop.aux_module_from_jax("alt_resnet", jp, device="cpu")
+
+
+def test_gradients_at_the_black_image_match_jax(small_pair):
+    """ReLU's derivative at a tie is JAX's 0.5 (``jnp.maximum(x, 0)``):
+    at the black image every pre-activation up to the first bias is 0
+    (``conv1`` has no bias), so PyTorch's 0 there zeroes the gradient.
+    Vanilla gradients at the black image, and integrated gradients,
+    whose first step is the black image."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.interpret import (
+        saliency as jsal,
+    )
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.interpret import (
+        saliency,
+    )
+    jp, model = small_pair
+    jscore = jsal.class_score_fn(jalt.apply_resnet, jp, 2)
+    score = saliency.class_score_fn(alt_resnet.apply_resnet, model, 2)
+    black = np.zeros((1, 32, 32, 3), np.float32)
+    want = jsal.vanilla_backprop(jscore, black)
+    assert float(np.abs(np.asarray(want)).max()) > 1e-4
+    _grad_close(saliency.vanilla_backprop(score, torch.from_numpy(black)),
+                want)
+    x = np.random.default_rng(5).uniform(size=(1, 32, 32, 3)).astype(
+        np.float32)
+    _grad_close(saliency.integrated_gradients(score, torch.from_numpy(x),
+                                              steps=6),
+                jsal.integrated_gradients(jscore, x, steps=6))
+
+
+def test_relu_backward_is_differentiable():
+    """``ops/nn.relu``'s backward is recorded under ``create_graph``, and
+    without autograd its forward is the same."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (
+        nn as N,
+    )
+    x = torch.tensor([-1.0, 0.0, 2.0], requires_grad=True)
+    w = torch.tensor(3.0, requires_grad=True)
+    (g,) = torch.autograd.grad((N.relu(x) * w).sum(), x, create_graph=True)
+    np.testing.assert_array_equal(g.detach().numpy(), [0.0, 1.5, 3.0])
+    (gw,) = torch.autograd.grad(g.sum(), w)   # through relu's backward
+    jx = jnp.asarray([-1.0, 0.0, 2.0])
+    jg = jax.grad(lambda v, s: jnp.sum(jnp.maximum(v, 0.0) * s))
+    np.testing.assert_array_equal(jg(jx, 3.0), [0.0, 1.5, 3.0])
+    assert float(gw) == float(jax.grad(lambda s: jnp.sum(jg(jx, s)))(3.0)) \
+        == 1.5
+    with torch.no_grad():
+        np.testing.assert_array_equal(N.relu(x).numpy(), [0.0, 0.0, 2.0])

@@ -353,3 +353,71 @@ def test_init_matches_jax_scales():
                 np.testing.assert_array_equal(b, 1.0)
             elif a.size >= 2000:
                 assert abs(np.std(b) / np.std(a) - 1.0) < 0.1, path
+
+
+def _input_grad_close(got, want, tol=1e-5):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(1.0, float(np.abs(want).max())), err
+
+
+# ReLU ties: at a zero input every pre-activation ahead of the first
+# nonzero bias is exactly 0, where JAX's ``jnp.maximum(x, 0)`` takes the
+# derivative 0.5 and PyTorch's ReLU 0 (``ops/nn.relu`` takes JAX's). The
+# batch-statistics BNs of a constant input divide by sqrt(eps), so the
+# WAE and LatentUNet gradients are held in float64 (JAX under x64).
+
+
+def test_wae_encoder_gradient_at_zero_input():
+    je, enc = _seeded(wae.init_encoder, 5, channels=ENC)
+    enc = enc.double()
+    r = np.random.default_rng(0).standard_normal((2, 512))
+    x = torch.zeros((2, 32, 32, 3), dtype=torch.float64, requires_grad=True)
+    (wae.apply_encoder(enc, x) * torch.from_numpy(r)).sum().backward()
+    with jax.enable_x64(True):
+        jgx, jgp = jax.grad(lambda xx, p: jnp.sum(
+            jwae.apply_encoder(p, xx) * r), argnums=(0, 1))(
+                jnp.zeros((2, 32, 32, 3), jnp.float64), _f64(je))
+        jgx, jgp = np.asarray(jgx), _tree(jgp)
+    _input_grad_close(x.grad.numpy(), jgx)
+    assert float(np.abs(jgp["fc"]["b"]).max()) > 0.1
+    _input_grad_close(enc.fc.bias.grad.numpy(), jgp["fc"]["b"])
+
+
+def test_latent_unet_gradient_at_zero_input():
+    jp, model = _unet_pair(4, concat_layer=0, **UNET)
+    model = model.double()
+    target = _x((2, 16, 16, 3), seed=11).astype(np.float64)
+    x = torch.zeros((2, 32, 32, 3), dtype=torch.float64, requires_grad=True)
+    recon, _, _ = unet.apply_latent_unet(model, x)
+    ((recon - torch.from_numpy(target)) ** 2).mean().backward()
+    with jax.enable_x64(True):
+        want = np.asarray(jax.grad(lambda xx: jnp.mean((
+            junet.apply_latent_unet(_f64(jp), xx, concat_layer=0,
+                                    latent_dim=256)[0]
+            - jnp.asarray(target)) ** 2))(jnp.zeros((2, 32, 32, 3),
+                                                    jnp.float64)))
+    _input_grad_close(x.grad.numpy(), want)
+
+
+def test_tiny_extractor_gradient_at_zero_tile():
+    """``models/blocks.py``'s TinyExtractor: its stem is a bias-free conv
+    and a ReLU, so a zero tile meets the tie at every stem output."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.models import (
+        blocks as jblocks,
+    )
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.models import (
+        blocks,
+    )
+    jp = _tree(jblocks.init_tiny_extractor(jax.random.PRNGKey(2), 10))
+    params = jax.tree_util.tree_map(torch.from_numpy, jp)
+    r = np.random.default_rng(1).standard_normal((1, 10)).astype(np.float32)
+    x = torch.zeros((1, 192, 192, 3), requires_grad=True)
+    (blocks.apply_tiny_extractor(params, x, 10)
+     * torch.from_numpy(r)).sum().backward()
+    want = np.asarray(jax.jit(jax.grad(lambda xx: jnp.sum(
+        jblocks.apply_tiny_extractor(jp, xx, 10) * r)))(
+            jnp.zeros((1, 192, 192, 3))))
+    assert float(np.abs(want).max()) > 1e-2
+    _input_grad_close(x.grad.numpy(), want)

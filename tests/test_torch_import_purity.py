@@ -188,3 +188,44 @@ def test_import_is_pure_in_fresh_interpreter():
                           text=True, env=env, cwd=_REPO, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "PORT_IMPORT_PURE" in proc.stdout
+
+
+# the port's convergence tools run on the card's machine, which has no JAX:
+# they may import the numpy-only helpers of the JAX tools, whose modules
+# import JAX only inside the functions the port's tools never call
+TOOLS = ("tools/torch_convergence_run.py",
+         "tools/torch_gan_convergence_run.py")
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_imports_no_jax(tool):
+    bad = sorted(set(_imported_roots(os.path.join(_REPO, tool)))
+                 & set(FORBIDDEN))
+    assert not bad, f"{tool} imports {bad}"
+
+
+_TOOLS_PROBE = f"""
+import sys, tempfile
+for name in ("jax", "jaxlib", "{JAX_PKG}"):
+    sys.modules[name] = None  # any import of it raises ImportError
+from tools import torch_convergence_run as conv, torch_gan_convergence_run as gconv
+conv.build_argparser().parse_args(["--tiny", "--device", "cpu"])
+gconv.build_argparser().parse_args(["--tiny", "--device", "cpu"])
+work = tempfile.mkdtemp()
+conv.build_tree(work + "/tree", n_slides=3, tiles_per_slide=4, roi=8)
+gconv.make_dataset(work + "/imgs", 2, 8)
+import numpy as np
+assert gconv.band_stats(np.zeros((2, 8, 8, 3))).shape == (6,)
+assert all(sys.modules.get(n) is None for n in ("jax", "jaxlib", "{JAX_PKG}"))
+print("TOOLS_IMPORT_PURE")
+"""
+
+
+def test_tools_import_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_PROBE],
+                          capture_output=True, text=True, env=env, cwd=_REPO,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "TOOLS_IMPORT_PURE" in proc.stdout

@@ -143,6 +143,11 @@ def test_serve_mesh_matches_one_rank(manifest, flags):
         outs[tag] = str(tree / tag)
         assert serve.main(common + ["--out_root", outs[tag]] + extra,
                           device="cpu") == 0
+    _assert_same_outputs(outs)
+
+
+def _assert_same_outputs(outs):
+    """The mesh daemon's rows and ``.dla`` maps are the single rank's."""
     rows = {}
     for tag, out in outs.items():
         with open(os.path.join(out, "results.csv")) as f:
@@ -202,3 +207,51 @@ def test_serve_mesh_survives_a_fault_on_one_rank(manifest, where, flags, rc,
     assert sorted(processed) == sorted(rows)
     if where == "read":
         assert "GHP_9_B_H&E" not in rows
+
+
+@pytest.mark.parametrize("io_depth", ["1", "0"])
+def test_serve_mesh_survives_a_cache_build_longer_than_the_timeout(
+        manifest, io_depth):
+    """Rank 0 builds the first slide's cache first-sight, and the build
+    takes longer than the group's timeout (5 s, the build 12 s): the other
+    rank waits for rank 0's next command all that time, kept alive by
+    rank 0's polls. ``--once`` ends with the single rank's rows and maps.
+    The test bounds its own time: a collective that waits 5 s raises, and
+    the launch runs on a thread joined with a timeout."""
+    import shutil
+    import threading
+
+    import torch_mesh_workers as W
+
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (
+        mesh as TM,
+    )
+
+    tree, m = manifest
+    common = ["--manifest", str(m), "--arch", "tiny", "--resolution", "16",
+              "--roi_size", "32", "--f32", "--once", "--settle_secs", "0",
+              "--chunk", "16", "--io_depth", io_depth]
+    outs = {t: str(tree / t) for t in ("one", "mesh")}
+    assert serve.main(common + ["--out_root", outs["one"]],
+                      device="cpu") == 0
+    staged = tree / "staged"
+    staged.mkdir()
+    for kind in ("data", "coor"):
+        f = f"{kind}_GHP_1_A_H&E_rois_size32_hsvcut_v3.npy"
+        shutil.move(str(tree / "cache" / f), str(staged / f))
+    argv = common + ["--out_root", outs["mesh"], "--mesh", "2"]
+    got = []
+
+    def run():
+        got.append(TM.launch(W.serve_slow_build, 2,
+                             args=(argv, "GHP_1_A_H&E", str(staged), 12.0),
+                             devices=["cpu"] * 2, timeout_s=5))
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+    runner.join(timeout=240)
+    assert not runner.is_alive(), "serve --mesh 2 did not end in 240 s"
+    assert got == [[0, 0]]
+    assert (tree / "cache" / "data_GHP_1_A_H&E_rois_size32_hsvcut_v3.npy"
+            ).is_file()
+    _assert_same_outputs(outs)

@@ -247,3 +247,69 @@ def test_step_out_of_range_raises(nets):
         sg.apply_generator(g.generator, torch.zeros(1, 1, D), [], step=9)
     with pytest.raises(ValueError, match="out of range"):
         sg.apply_discriminator(d, torch.zeros(1, 3, 4, 4), step=-1)
+
+
+# LeakyReLU(0.2) at exactly 0: JAX's ``where(x >= 0, x, 0.2 x)`` takes the
+# derivative 1 there, PyTorch's leaky_relu the slope. A zero latent row
+# (pixel_norm(0) = 0 meets the zero-initialised biases) and a black real
+# batch (bias-free from_rgb outputs) put every activation of their path
+# on the tie.
+
+
+def test_style_mlp_gradient_with_a_zero_latent_row_matches_jax(nets):
+    import test_torch_gan_train as H
+    pg, _, g, _ = nets
+    z = np.random.default_rng(3).standard_normal((4, D)).astype(np.float32)
+    z[1] = 0.0
+    want = jax.grad(lambda p: jnp.sum(jsg.apply_style_mlp(
+        p, jnp.asarray(z))))(pg)
+    got = H.grads_of(g, [sg.apply_style_mlp(g, torch.from_numpy(z)).sum()])
+    assert H.gap(got, want) <= REL
+
+
+def test_critic_step_at_the_ties_matches_jax():
+    """One WGAN-GP critic loss and its gradients (the penalty's double
+    backward through every activation) on a black real batch and a zero
+    latent row, with JAX's draws."""
+    import test_torch_gan_train as H
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.train import (
+        gan as jgan,
+    )
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (
+        gan,
+    )
+    pg, pd, g, d = H.nets()
+    step, B = 1, 4
+    real, zs = H.batch(step, B, step)
+    real[:] = 0.0
+    zs[:, 1] = 0.0
+    key = jax.random.PRNGKey(8)
+    (jv, jaux), jg = jax.value_and_grad(
+        jgan.make_d_loss(step, width_mult=W, from_rgb_activate=True),
+        has_aux=True)(pd, pg, jnp.asarray(real), jnp.asarray(zs),
+                      jnp.asarray(H.SEL), 0.5, key)
+    terms = []
+    v, aux = gan.d_loss(g, d, H.nchw(real), torch.from_numpy(zs), H.SEL,
+                        0.5, H.d_draws(key, d, B, step), step=step,
+                        sink=terms.append)
+    for got, want in ((v, jv), (aux["disc_loss"], jaux["disc_loss"]),
+                      (aux["grad_penalty"], jaux["grad_penalty"])):
+        assert abs(float(got) - float(want)) <= REL * max(
+            1.0, abs(float(want)))
+    assert float(aux["grad_penalty"]) > 0
+    assert H.gap(H.grads_of(d, terms), jg) <= REL
+
+
+def test_leaky_relu_modules_hold_no_parameters(nets):
+    """The activations standing in the reference's Sequentials are
+    ``stylegan.LeakyReLU``, parameter-free, with JAX's derivative."""
+    _, _, g, d = nets
+    acts = [m for m in [*g.modules(), *d.modules()]
+            if isinstance(m, sg.LeakyReLU)]
+    assert len(acts) >= 8 and not any(
+        isinstance(m, torch.nn.LeakyReLU) for m in [*g.modules(),
+                                                    *d.modules()])
+    assert all(not list(m.parameters()) for m in acts)
+    x = torch.tensor([-1.0, 0.0, 2.0], requires_grad=True)
+    (gx,) = torch.autograd.grad(sg.LeakyReLU()(x).sum(), x)
+    np.testing.assert_array_equal(gx.numpy(), np.float32([0.2, 1.0, 1.0]))

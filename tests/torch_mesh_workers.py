@@ -146,3 +146,32 @@ def serve_failing(mesh, argv, where):
 
         resnet.apply_resnet26 = failing_extract
     return serve._mesh_rank(mesh, argv)
+
+
+def serve_slow_build(mesh, argv, name, staged, delay_s):
+    """One rank of ``serve --mesh 2`` whose rank 0 builds slide ``name``'s
+    tile cache first-sight and slowly: the build sleeps ``delay_s`` (more
+    than the group's timeout), then puts the cache files held in
+    ``staged`` in place. Returns the rank's exit code."""
+    import os
+    import shutil
+
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (
+        serve,
+    )
+
+    torch.set_num_threads(1)
+    if mesh.rank == 0:
+        build = roibuilder.RoiBuilder.build
+
+        def slow_build(self):
+            if self.getname() == name:
+                time.sleep(delay_s)
+                for key in ("coor_cache", "data_cache"):
+                    path = self.params[key]
+                    shutil.copy(os.path.join(staged, os.path.basename(path)),
+                                path)
+            return build(self)
+
+        roibuilder.RoiBuilder.build = slow_build
+    return serve._mesh_rank(mesh, argv)
