@@ -68,7 +68,15 @@ must be below its first and whose held-out slide accuracy must be 1.0,
 its pool launches counted and a sample held to the plain pool; and
 ``tools/torch_gan_convergence_run.py``, the full-width StyleGAN at 8 px
 in f32, which must meet the band-distance criteria, and in bf16,
-recorded).
+recorded). Then ``examples``: the JAX walkthrough's eight steps through
+the port's CLIs (``examples/torch_full_pipeline_demo.py``) in this
+process on the card, their artifacts, the pool's launches in each step
+(a sample held to the plain pool) and the live driver's checkpoint
+against the CPU. In the mesh phase, ``comm_audit``: every collective of
+the world of one's window step recorded (``tools/torch_comm_audit.py``)
+and held to the port's pins with its host time, and the audit's six
+families on two gloo ranks on the card held to the pins the CPU test
+holds.
 ``chip_smoke.py --mesh-cards N``, on a machine with
 N cards, runs only the mesh's checks with one rank a card over NCCL,
 then the CLIs with ``--mesh N``. A kernel's device time is per call,
@@ -186,6 +194,7 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     interop,
     torch_interop,
 )
+from tools import torch_comm_audit  # noqa: E402
 
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
 JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
@@ -366,60 +375,96 @@ def check_pool_kernel():
     return worst
 
 
+PROFILE_PAD = 256  # spin kernels launched before and after a window's calls
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def profile_window(fn, iters):
+    """The card's activities over ``iters`` calls of ``fn`` under
+    torch.profiler, as ``{kernel name: [durations in us]}``. The profiler
+    on the H100 host loses a run of records at a window's edges (up to
+    half of 200 short calls), so the calls sit between PROFILE_PAD spin
+    kernels on either side, whose records are dropped here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        for _ in range(iters):
+            fn()
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+    pads = [nm for nm in by_name if PAD_KERNEL in nm]
+    if by_name and not pads:
+        raise AssertionError(f"no {PAD_KERNEL} among the profiler's kernels "
+                             f"{sorted(by_name)[:4]}: the padding would be "
+                             "timed")
+    for nm in pads:
+        del by_name[nm]
+    return by_name
+
+
 def device_ms(fn, iters, match=None, windows=3):
     """Mean device time of one call of ``fn`` from torch.profiler over
-    ``iters`` calls, host time between launches excluded. With ``match``,
-    the device activities whose name holds it: for each such kernel name,
-    its mean duration times its launches per call (its records over
-    ``iters``, rounded, at least 1), summed over the names, so a call of
-    two launches counts both. Without, the sum of all device activities
-    over ``iters``. The profiler on the H100 host now and then records a
-    launch short, or a whole window empty: a short window still gives each
-    name's mean over what it recorded, an empty one is retried, and after
+    ``iters`` calls (:func:`profile_window`), host time between launches
+    excluded. With ``match``, the device activities whose name holds it:
+    for each such kernel name, its mean duration times its launches per
+    call (its records over ``iters``, rounded, at least 1), summed over the
+    names, so a call of two launches counts both. Without, the sum of all
+    device activities over ``iters``. The profiler on the H100 host now and
+    then records a window short, by a few launches or by half of them, or
+    records nothing: a window that recorded nothing, or (with ``match``) a
+    name short of a whole number of launches a call, is taken again, up to
+    ``windows`` windows, and the fullest is used; after
     ``windows`` empty windows the time comes from CUDA events instead
     (``time_cuda``, which includes launch gaps).
 
     Returns ``(ms, how)``; ``how`` says where the number came from, and is
     printed beside it: ``source`` ("profiler" or "cuda_events"),
     ``records`` (the device activities recorded; with ``match``, the
-    launches), ``calls`` (``iters``) and, with ``match``,
-    ``launches_per_call`` (records over calls)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    launches), ``calls`` (``iters``), ``windows`` (the windows taken) and,
+    with ``match``, ``launches_per_call`` (records over calls)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and (match is None
-                                                     or match in e.name):
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.end - e.time_range.start)
-        records = sum(len(v) for v in by_name.values())
-        if records:
-            how = {"source": "profiler", "records": records, "calls": iters}
-            if match is None:
-                return sum(map(sum, by_name.values())) / 1e3 / iters, how
-            how["launches_per_call"] = records / iters
-            per_call = 0.0
-            for nm, spans in by_name.items():
-                per_call += (sum(spans) / len(spans)
-                             * max(1, round(len(spans) / iters)))
-                if len(spans) % iters:
-                    log(f"profiler: {len(spans)} records of {nm[:60]} for "
-                        f"{iters} calls")
-            return per_call / 1e3, how
-        log(f"profiler: no device activity {match or ''} in a window of "
-            f"{iters} calls; retrying")
+    best, taken = {}, 0
+    for taken in range(1, windows + 1):
+        by_name = {nm: spans for nm, spans in profile_window(fn, iters).items()
+                   if match is None or match in nm}
+        records = sum(map(len, by_name.values()))
+        if records > sum(map(len, best.values())):
+            best = by_name
+        short = [nm for nm, spans in by_name.items() if len(spans) % iters]
+        if records and (match is None or not short):
+            break
+        for nm in short:
+            log(f"profiler: {len(by_name[nm])} records of {nm[:60]} for "
+                f"{iters} calls")
+        if not records:
+            log(f"profiler: no device activity {match or ''} in a window "
+                f"of {iters} calls")
+    records = sum(map(len, best.values()))
+    if records:
+        how = {"source": "profiler", "records": records, "calls": iters,
+               "windows": taken}
+        if match is None:
+            return sum(map(sum, best.values())) / 1e3 / iters, how
+        how["launches_per_call"] = records / iters
+        per_call = sum(sum(spans) / len(spans)
+                       * max(1, round(len(spans) / iters))
+                       for spans in best.values())
+        return per_call / 1e3, how
     log(f"profiler: {windows} empty windows; timing {match or 'the calls'} "
         "with CUDA events instead")
-    how = {"source": "cuda_events", "records": 0, "calls": iters}
+    how = {"source": "cuda_events", "records": 0, "calls": iters,
+           "windows": taken}
     if match is not None:
         how["launches_per_call"] = None
     return time_cuda(fn, iters), how
@@ -427,7 +472,7 @@ def device_ms(fn, iters, match=None, windows=3):
 
 def ms_how(how, prefix="ms"):
     """``device_ms``'s provenance as row keys: ``<prefix>_source``,
-    ``<prefix>_records``, ``<prefix>_calls``."""
+    ``<prefix>_records``, ``<prefix>_calls``, ``<prefix>_windows``."""
     return {f"{prefix}_{k}": v for k, v in how.items()}
 
 
@@ -578,9 +623,9 @@ def check_pool_backward():
 
 
 def require_one_launch(entry, t, how):
-    """Fail unless the profiler saw one launch a call of a backward entry
-    (its records over its calls, rounded: the profiler on the H100 host
-    now and then records a launch short)."""
+    """Fail unless the profiler saw one launch a call of a backward entry:
+    its records over its calls in the fullest of ``device_ms``'s windows,
+    rounded, since a window may still record a launch or a few short."""
     per_call = how.get("launches_per_call")
     if per_call is None or round(per_call) != 1:
         raise AssertionError(f"{entry} at T={t}: {per_call} launches a call "
@@ -2381,18 +2426,25 @@ def mesh_train_step(model, mesh, window):
     """One window step (f32, lr 1e-3) from ``model``'s weights on a fresh
     copy: returns the window's summed gradient (Adam's first moment over
     0.1) and the parameters after the step, as host arrays by name, and
-    the metrics."""
+    the metrics with ``step_s``, the seconds of the step call alone
+    (between two synchronizations; the copy, the optimizer and the host
+    copies are outside it)."""
     work = amil.AttentionMIL(model.cfg, device=next(model.parameters()).device)
     work.load_state_dict(model.state_dict())
     opt = steps.make_optimizer(work)
     tiles, masks, labels, scores, keep = window
-    metrics = steps.make_train_step(work.cfg, mesh=mesh)(
-        work, opt, tiles, masks, labels, 1e-3, scores=scores, keep=keep)
+    step = steps.make_train_step(work.cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(work, opt, tiles, masks, labels, 1e-3, scores=scores,
+                   keep=keep)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
     grads = {n: (opt.state[p]["exp_avg"] / 0.1).cpu().numpy()
              for n, p in work.named_parameters()}
     params = {n: p.detach().cpu().numpy() for n, p in work.named_parameters()}
-    return grads, params, {k: np.asarray(v).tolist()
-                           for k, v in metrics.items()}
+    return grads, params, {**{k: np.asarray(v).tolist()
+                              for k, v in metrics.items()}, "step_s": step_s}
 
 
 def split_extract_step(model, window, shares):
@@ -2536,8 +2588,15 @@ def world_one(model, one, big, store, shares, card):
         window = mesh_window(one, "cuda")
         single = mesh_train_step(model, None, window)
         zero_pool_counts()
-        world1 = mesh_train_step(model, mesh, window)
+        with torch_comm_audit.record_collectives() as first:
+            world1 = mesh_train_step(model, mesh, window)
         launches["mesh_world1_train"] = pool_counts()
+        # the collectives' time from a second step: the group's first
+        # collective sets up NCCL's communicator
+        with torch_comm_audit.record_collectives() as warm:
+            step_s = mesh_train_step(model, mesh, window)[2]["step_s"]
+        set_pool_counts(launches["mesh_world1_train"])
+        audit_world1 = world1_audit(first, warm, cfg, step_s)
         require_launched("mesh_world1_train", launches["mesh_world1_train"],
                          SPLIT_COUNTS)
         g_gap, p_gap = train_gap(world1, single)
@@ -2589,7 +2648,56 @@ def world_one(model, one, big, store, shares, card):
     if not ok:
         raise AssertionError("a world of one disagrees with the single-card "
                              "path")
-    return refs, launches, ar_world1
+    return refs, launches, ar_world1, audit_world1
+
+
+def world1_audit(first, warm, cfg, step_s):
+    """The world of one's window steps as the collective audit counts them
+    (``tools/torch_comm_audit``): the first and a second step's records,
+    each held to the port's own pins for a window of len(MESH_BAGS) bags on
+    one rank, and the host time of their collectives (the first's holds
+    NCCL's set-up) beside the second step's own time (the step call
+    alone, :func:`mesh_train_step`'s ``step_s``)."""
+    want = torch_comm_audit.expected_window(1, 1, cfg, bags=len(MESH_BAGS))
+    rows = [torch_comm_audit.summarize(
+        "classifier_train_world1", records, None, "slides=1,tiles=1",
+        "the mesh phase's window step on a world of one over NCCL")
+        for records in (first, warm)]
+    for row in rows:
+        if row["call_sites"] != want["call_sites"]:
+            raise AssertionError("the world of one's window step issues "
+                                 "other collectives than pinned: "
+                                 f"{row['call_sites']}")
+    return {"collectives": rows[1]["collectives"],
+            "call_sites": rows[1]["call_sites"],
+            "first_step_collectives_host_ms": rows[0]["host_ms"],
+            "collectives_host_ms": rows[1]["host_ms"],
+            "collectives_host_us_each": 1e3 * rows[1]["host_ms"] / len(warm),
+            "window_step_ms": 1e3 * step_s}
+
+
+def comm_audit_phase(ar_world1, ar_gloo2, audit_world1, card):
+    """``tools/torch_comm_audit.run_audit`` on two gloo ranks on cuda:0 at
+    the CPU test's widths, every family held to the pins the CPU test
+    holds (``expected_rows``: counts and bytes do not depend on the
+    device); emitted beside the world of one's window step, its
+    collectives' host time and the all-reduce times the mesh phase
+    measured."""
+    t0 = time.perf_counter()
+    rows = torch_comm_audit.run_audit(2, full_width=False,
+                                      devices=["cuda:0"] * 2)
+    secs = time.perf_counter() - t0
+    bad = torch_comm_audit.pins_mismatch(
+        rows, torch_comm_audit.expected_rows(2, full_width=False))
+    emit({"phase": "comm_audit", "ranks": 2, "devices": ["cuda:0"] * 2,
+          "backend": "gloo", "rows": rows, "mismatches": bad,
+          "world1_nccl_window": audit_world1,
+          "all_reduce_table_ms": {"world1_nccl": ar_world1,
+                                  "world2_gloo": ar_gloo2},
+          "seconds": secs, "ok": not bad, **card})
+    if bad:
+        raise AssertionError(f"the collective audit on the card differs "
+                             f"from the pins: {bad}")
 
 
 def spawned_ranks(label, n, devices, one, big, refs, store):
@@ -2660,11 +2768,14 @@ def mesh_phase(one, big, card):
                                     amil.MILConfig())
     store = os.path.join(CACHE, "mesh_store")
     os.makedirs(store, exist_ok=True)
-    refs, launches, ar_world1 = world_one(model, one, big, store, 2, card)
+    refs, launches, ar_world1, audit_world1 = world_one(model, one, big,
+                                                        store, 2, card)
     # two ranks on cuda:0; gloo, since they share the card
     ranks, gloo_launches = spawned_ranks("mesh_gloo2", 2, ["cuda:0"] * 2,
                                          one, big, refs, store)
     launches.update(gloo_launches)
+    comm_audit_phase(ar_world1, ranks[0]["all_reduce_ms"], audit_world1,
+                     card)
     emit({"phase": "mesh_all_reduce_time", "table": [3, 2],
           "world1_nccl_ms": ar_world1,
           "world2_gloo_ms": ranks[0]["all_reduce_ms"],
@@ -2703,8 +2814,8 @@ def mesh_cards(n):
                                         amil.MILConfig())
         store = os.path.join(CACHE, "mesh_store")
         os.makedirs(store, exist_ok=True)
-        refs, _, ar_world1 = world_one(model, one, big, store,
-                                       n // mesh_mod.slide_axis(n), card)
+        refs, _, ar_world1, _ = world_one(model, one, big, store,
+                                          n // mesh_mod.slide_axis(n), card)
         label = f"mesh_nccl{n}"
         ranks, launches = spawned_ranks(label, n, mesh_mod.mesh_devices(n),
                                         one, big, refs, store)
@@ -4226,6 +4337,139 @@ def learn_phase(card):
     return counts, err
 
 
+EXAMPLES_SPY = (12, 3)           # hold 12 pool calls, every 3rd, to plain
+# the walkthrough's steps that pool, and whether each trains (backward)
+EXAMPLES_POOLED = {"5": ("examples_legacy", True),
+                   "6": ("examples_train", True),
+                   "6i": ("examples_interface", False),
+                   "6b": ("examples_daemon", False)}
+
+
+def examples_live_gap(out, devices=("cuda", "cpu")):
+    """The live driver's epoch-0 checkpoint through ``classify_slide`` on
+    the card and on the CPU (``devices``), f32 with TF32 off, on every
+    slide of the walkthrough's tree: the worst gap of the probabilities
+    and of ``Aterm``. Comparison launches: the counts are restored."""
+    counts = pool_counts()
+    cfg = classify.make_config(classify.build_argparser().parse_args(
+        ["--arch", "tiny"]))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cache_dir = os.environ["CACHE_DIR"]
+    os.environ["CACHE_DIR"] = out["cache"]
+    try:
+        gaps = []
+        models = {}
+        for dev in devices:
+            m = amil.AttentionMIL(cfg, device=dev)
+            checkpoint.restore_params(m, out["ckpt"], strict=True)
+            models[len(models)] = m.eval()
+        for name in sorted(os.listdir(out["slides"])):
+            path = os.path.join(out["slides"], name)
+            got = []
+            for dev, m in zip(devices, models.values()):
+                builder = roibuilder.RoiBuilder(path, {"roi_size": 32},
+                                                device=dev)
+                probs, outs, _ = inference.classify_slide(
+                    m, cfg, builder, resolution=16, compute_dtype=None)
+                got.append((probs, outs["Aterm"]))
+            gaps.append(max(float(np.abs(got[0][i] - got[1][i]).max())
+                            for i in (0, 1)))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        os.environ["CACHE_DIR"] = cache_dir
+    torch.cuda.synchronize()
+    set_pool_counts(counts)
+    return max(gaps), len(gaps)
+
+
+def examples_phase(card):
+    """ROADMAP A.19 on the card: ``examples/torch_full_pipeline_demo.py``
+    in this process on cuda, the JAX walkthrough's eight steps through the
+    port's CLIs. Checks the artifacts (where matplotlib is missing, that
+    step 7 and the overlay say so), counts the pool's forward and backward
+    launches in each step (the legacy classifier and the live trainer
+    must launch both, ``--interface`` and the int8 daemon the forward),
+    holds a sample of the pool calls to the plain pool, and holds the
+    live driver's checkpoint through ``classify_slide`` on the card to the
+    CPU (f32, TF32 off, 1e-5). Returns the forward and backward launches
+    by path and the worst held error."""
+    from examples import torch_full_pipeline_demo as demo
+
+    t0 = time.perf_counter()
+    wd = os.path.join(CACHE, "examples")
+    steps = {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        zero_pool_counts()
+        yield
+        steps[name] = pool_counts()
+
+    text = io.StringIO()
+    limit, every = EXAMPLES_SPY
+    try:
+        with pool_spy(limit, every) as seen, \
+                contextlib.redirect_stdout(text):
+            out = demo.run(wd, device="cuda", step_hook=counted)
+    finally:
+        sys.stderr.write(text.getvalue())
+    fwd, bwd = {}, {}
+    for step, (path, trains) in EXAMPLES_POOLED.items():
+        c = steps[step]
+        require_launched(path, c, ("LAUNCHES", "BWD_LAUNCHES") if trains
+                         else ("LAUNCHES",))
+        fwd[path] = c["LAUNCHES"]
+        if trains:
+            bwd[path] = c["BWD_LAUNCHES"]
+    err = hold_spied("examples", seen)
+    live_gap, n_slides = examples_live_gap(out)
+    have = helpers.have_matplotlib()
+    expected = [os.path.join(wd, *p) for p in (
+        ("gan_store", "meta.json"),
+        ("gan_run", "checkpoint", "train_step-1.model"),
+        ("gan_run", "sample.png"), ("gan_run", "sample_mixing_0.png"),
+        ("runs", "run_DEMO", "train_step-000.model"),
+        ("serve_out", "results.csv"), ("gradcam_tile.npy",))]
+    if have:
+        expected.append(out["gradcam_png"])
+    missing = [p for p in expected if not os.path.exists(p)]
+    printed = text.getvalue()
+    named = have or (out["skipped"] == ["7"]
+                     and "step 7: utils.plots draws with matplotlib"
+                     in printed
+                     and "step 8: the colour overlay needs matplotlib"
+                     in printed)
+    legacy = any(f.startswith("train_step-") for _, _, fs
+                 in os.walk(out["legacy"]) for f in fs)
+    manifests = os.path.exists(os.path.join(
+        out["runs"], "interface_data", "manifest_img.csv"))
+    cam = out["gradcam"]["cam"]
+    ok = (not missing and named and legacy and manifests
+          and bool(np.isfinite(cam).all()) and live_gap <= 1e-5)
+    secs = time.perf_counter() - t0
+    emit({"phase": "examples", "steps": {k: {"pool_forward": v["LAUNCHES"],
+                                             "pool_backward":
+                                             v["BWD_LAUNCHES"]}
+                                         for k, v in steps.items()},
+          "missing": missing, "matplotlib": have,
+          "skipped_for_a_package": out["skipped"],
+          "gradcam_range": [float(cam.min()), float(cam.max())],
+          "held_calls": {k: len(v) for k, v in seen.items()},
+          "held_max_abs_err": err,
+          "live_ckpt_card_vs_cpu": live_gap, "live_slides": n_slides,
+          "tol_live": 1e-5, "seconds": secs, "ok": ok, **card})
+    if not ok:
+        raise AssertionError("the walkthrough on the card is wrong: "
+                             f"missing {missing}, named {named}, legacy "
+                             f"{legacy}, manifests {manifests}, live gap "
+                             f"{live_gap}")
+    return fwd, bwd, err
+
+
 def split_row(way, mesh_launches, max_err, times):
     """The kernels line's row of the split entries of the pool's forward or
     backward: their launches on the mesh paths (each path's own count,
@@ -4445,7 +4689,11 @@ def main():
         learn_counts, learn_err = learn_phase(card)
         launches["learn_classifier"] = learn_counts["LAUNCHES"]
         bwd_launches_learn = learn_counts["BWD_LAUNCHES"]
-        max_err = max(max_err, fig_err, legacy_err, aux_err, learn_err)
+        # the JAX walkthrough's eight steps through the port's CLIs
+        examples_fwd, examples_bwd, examples_err = examples_phase(card)
+        launches.update(examples_fwd)
+        max_err = max(max_err, fig_err, legacy_err, aux_err, learn_err,
+                      examples_err)
         mesh_launches, split_err, split_times = mesh_phase(one, big, card)
         mesh_launches.update(mesh_cli(1, flags, cli_serve_inputs(model,
                                                                  slides),
@@ -4481,8 +4729,10 @@ def main():
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
         "launches": (bwd_launches + bwd_profile + bwd_launches_legacy
-                     + bwd_launches_aux + bwd_launches_learn),
-        "max_abs_err": max(bwd_err, legacy_err, aux_err, learn_err),
+                     + bwd_launches_aux + bwd_launches_learn
+                     + sum(examples_bwd.values())),
+        "max_abs_err": max(bwd_err, legacy_err, aux_err, learn_err,
+                           examples_err),
         **bwd_times[t_bwd], "library_ms": None,
         "shape": {"T": t_bwd, "K": 3, "O": 1, "cotangents": "dM"},
         "ms_by_T": {t: r["ms"] for t, r in bwd_times.items()},
@@ -4492,7 +4742,8 @@ def main():
                              "train_profile": bwd_profile,
                              "legacy_train": bwd_launches_legacy,
                              "aux_head_saliency": bwd_launches_aux,
-                             "learn_classifier": bwd_launches_learn}},
+                             "learn_classifier": bwd_launches_learn,
+                             **examples_bwd}},
         *[split_row(way, mesh_launches, split_err, split_times[way])
           for way in ("forward", "backward")]]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -274,7 +274,7 @@ class MultiResolutionStore:
 BCSingleBagDatasetSimple = ImageFolderDataset
 
 
-def _main(argv=None, *, device=None):
+def build_argparser():
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -288,7 +288,11 @@ def _main(argv=None, *, device=None):
                          "unless --init_size is raised to match")
     ap.add_argument("--max-items", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _main(argv=None, *, device=None):
+    args = build_argparser().parse_args(argv)
     res = []
     r = args.min_size
     while r <= args.max_size:

@@ -87,7 +87,7 @@ def style_mixing(gen, generator, step, mean_style_w, n_source, n_target, *,
     return torch.cat(images, dim=0)
 
 
-def main(argv=None, *, device=None):
+def build_argparser():
     p = argparse.ArgumentParser()
     p.add_argument("path", type=str, help="path to checkpoint file")
     p.add_argument("--size", type=int, default=1024)
@@ -98,7 +98,11 @@ def main(argv=None, *, device=None):
     p.add_argument("--n_mixing", type=int, default=20)
     p.add_argument("--output_dir", default=".")
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None, *, device=None):
+    args = build_argparser().parse_args(argv)
     device = resolve_device(device)
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -230,16 +230,21 @@ def plot_layer_metrics(path: str, tag: str = "TEST"):
     return fig_path
 
 
-def main(argv=None):
-    """CLI: redraw every plot of a run directory (the reference ships
-    plot_gbm_metrics.py / plot_roc.py / plot_layer_metrics.py as
-    scripts)."""
+def build_argparser():
     import argparse
 
     ap = argparse.ArgumentParser(description="Plot training artifacts")
     ap.add_argument("path", help="run directory with *summary.json")
     ap.add_argument("--tag", default="TEST")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None, device=None):
+    """CLI: redraw every plot of a run directory (the reference ships
+    plot_gbm_metrics.py / plot_roc.py / plot_layer_metrics.py as
+    scripts). ``device`` is taken as the other CLIs take it and not used:
+    the plots are drawn on the host from the run's JSON."""
+    args = build_argparser().parse_args(argv)
     if not have_matplotlib():
         raise SystemExit("plots: drawing needs matplotlib, which is not "
                          "installed here; the JSON artifacts under "

@@ -194,7 +194,10 @@ def test_import_is_pure_in_fresh_interpreter():
 # they may import the numpy-only helpers of the JAX tools, whose modules
 # import JAX only inside the functions the port's tools never call
 TOOLS = ("tools/torch_convergence_run.py",
-         "tools/torch_gan_convergence_run.py")
+         "tools/torch_gan_convergence_run.py",
+         "tools/torch_comm_audit.py",
+         "examples/torch_synthetic_demo.py",
+         "examples/torch_full_pipeline_demo.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -229,3 +232,30 @@ def test_tools_import_with_jax_blocked():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "TOOLS_IMPORT_PURE" in proc.stdout
+
+
+# the collective audit and the walkthroughs run on the card's machine too
+_AUDIT_PROBE = f"""
+import sys
+for name in ("jax", "jaxlib", "{JAX_PKG}"):
+    sys.modules[name] = None  # any import of it raises ImportError
+from tools import torch_comm_audit as audit
+from examples import torch_full_pipeline_demo as full
+from examples import torch_synthetic_demo as synth
+assert set(audit.expected_rows(2, full_width=False)) == set(audit.jax_rows())
+assert [s.name for s in full.walkthrough("/w")] == [
+    "2", "3", "4", "5", "6", "6i", "6b", "7"]
+assert len(synth.walkthrough("/w")) == 2
+assert all(sys.modules.get(n) is None for n in ("jax", "jaxlib", "{JAX_PKG}"))
+print("AUDIT_DEMOS_IMPORT_PURE")
+"""
+
+
+def test_audit_and_demos_import_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _AUDIT_PROBE],
+                          capture_output=True, text=True, env=env, cwd=_REPO,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "AUDIT_DEMOS_IMPORT_PURE" in proc.stdout
