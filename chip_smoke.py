@@ -6,9 +6,10 @@ Builds every CUDA kernel of the serving and training paths from the
 sources in this checkout (the gated-attention pool, forward and backward,
 and the fused uint8 stem, one ``nvcc`` each, in parallel; the stem's SASS
 must hold tensor-core instructions, and ptxas must report no spill for
-the pool's backward), holds each against its plain PyTorch version on
-the card (the pool also at the edges of its partitions of T, the
-backward's cluster sizes included, and bit-identical over two calls),
+the pool's forward and backward kernels), holds each against its plain
+PyTorch version on the card (the pool also at the edges of its
+partitions of T, the forward's paths and the backward's cluster sizes
+included, and bit-identical over two calls),
 drives full-width slide
 serving (``classify_slide`` and ``classify_slide_streaming``) on synthetic
 slides written and cached by the port's own RoiBuilder, serves a manifest
@@ -80,11 +81,10 @@ holds.
 ``chip_smoke.py --mesh-cards N``, on a machine with
 N cards, runs only the mesh's checks with one rank a card over NCCL,
 then the CLIs with ``--mesh N``. A kernel's device time is per call,
-summed over the CUDA launches of the call (the pool's forward makes two
-above ``gated_pool.POOL_RANGE`` tiles; each entry of its backward makes
-one, which the profiler must see); its launch counts are wrapper calls
-that reached the kernel. Progress (and the daemon's own
-prints) goes to stderr; results go to stdout as JSON lines, each timing
+summed over the CUDA launches of the call (each entry of the pool's
+forward and backward makes one, which the profiler must see); its launch
+counts are wrapper calls that reached the kernel. Progress (and the
+daemon's own prints) goes to stderr; results go to stdout as JSON lines, each timing
 beside the card's name and power limit. The second-to-last line lists the
 kernels, the last line is the device record.
 
@@ -245,16 +245,24 @@ TRAIN_POOL_T = sorted({
 # in a --batch group, a training bag's subsample, or a tile-less slide's
 # zero bag (the int8 daemon serves one); the kernel is held to
 # plain at each of them, and at a few more (a bag below a warp, K=5/O=2,
-# 2048-2560, a 50k-tile slide, and the edges of the kernel's partition of
-# T into ranges)
+# O=9 (more columns than a pass of the kernel's sums takes), 2047-2560,
+# 4097, a 50k-tile slide, and each crossover of the forward's partition
+# of T, -1..+2)
 MAIN_PATH_T = sorted({tile_count(s) for s in _SPECS.values()}
                      | set(TRAIN_POOL_T) | {roibuilder.EMPTY_BAG_TILES})
-_R = gated_pool.POOL_RANGE
+# the T at which gated_pool.pool_fwd_partition changes its path, its
+# cluster size or its rounds a thread (FWD_EDGES), and their neighbours
+POOL_FWD_CROSS = sorted({e + d for e in gated_pool.FWD_EDGES
+                         for d in (-1, 0, 1, 2)})
 POOL_SHAPES = [(t, 3, 1) for t in MAIN_PATH_T] + [
     (64, 3, 1), (100, 3, 1), (7, 5, 2), (2048, 3, 1), (2560, 3, 1),
-    (50000, 3, 1), (_R - 1, 3, 1), (_R, 3, 1), (_R + 1, 3, 1),
-    (2 * _R + 1, 3, 1), (2 * _R + 1, 5, 2)]
-# two calls on the same inputs at this T must give bit-identical outputs
+    (50000, 3, 1), (2047, 3, 1), (2049, 3, 1), (4097, 3, 1), (4097, 5, 2),
+    (2000, 5, 2), (50000, 5, 2), (2000, 3, 9), (50000, 3, 9)] + [
+    (t, 3, 1) for t in POOL_FWD_CROSS]
+# all-masked bags: one on each path of the forward
+POOL_MASKED_T = (2048, 50000)
+# two calls on the same inputs at this T (and at each of POOL_FWD_CROSS)
+# must give bit-identical outputs
 POOL_REPEAT_T = 50000
 # timed: the one-pass slide (the kernels line), the streaming slide, and a
 # 50k-tile slide
@@ -347,7 +355,8 @@ def pool_inputs(t, k, o, seed, all_masked=False, device="cuda"):
 def check_pool_kernel():
     """Kernel vs plain on the card, f32, at every listed shape."""
     worst = 0.0
-    cases = [(s, False) for s in POOL_SHAPES] + [((2048, 3, 1), True)]
+    cases = ([(s, False) for s in POOL_SHAPES]
+             + [((t, 3, 1), True) for t in POOL_MASKED_T])
     for i, ((t, k, o), all_masked) in enumerate(cases):
         args = pool_inputs(t, k, o, seed=100 + i, all_masked=all_masked)
         got = gated_pool.gated_attention_pool(*args)
@@ -355,23 +364,27 @@ def check_pool_kernel():
         want = gated_pool.gated_attention_pool_reference(*args)
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         ok = errs[0] <= 1e-5 and errs[1] <= 1e-6 and errs[2] <= 1e-6
+        if all_masked:  # every output is 0 exactly
+            ok = ok and not any(bool(x.any()) for x in got)
         emit({"phase": "pool_kernel_vs_plain", "T": t, "K": k, "O": o,
+              "cut": gated_pool.pool_fwd_partition(t),
               "all_masked": all_masked, "err_M": errs[0], "err_A1T": errs[1],
               "err_wROIs": errs[2], "tol_M": 1e-5, "tol_A1T_wROIs": 1e-6,
               "ok": ok})
         if not ok:
             raise AssertionError(f"gated_pool kernel disagrees at {t, k, o}")
         worst = max(worst, *errs)
-    args = pool_inputs(POOL_REPEAT_T, 3, 1, seed=99)
-    first = gated_pool.gated_attention_pool(*args)
-    second = gated_pool.gated_attention_pool(*args)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(first, second))
-    emit({"phase": "pool_repeat", "T": POOL_REPEAT_T,
-          "nblk": gated_pool.pool_partition(POOL_REPEAT_T)[0],
-          "bit_identical": same})
-    if not same:
-        raise AssertionError("two gated_pool calls on the same inputs differ")
+    for t in sorted({POOL_REPEAT_T, *POOL_FWD_CROSS}):
+        args = pool_inputs(t, 3, 1, seed=99)
+        first = gated_pool.gated_attention_pool(*args)
+        second = gated_pool.gated_attention_pool(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        emit({"phase": "pool_repeat", "T": t,
+              "cut": gated_pool.pool_fwd_partition(t), "bit_identical": same})
+        if not same:
+            raise AssertionError(f"two gated_pool calls at T={t} on the "
+                                 "same inputs differ")
     return worst
 
 
@@ -510,27 +523,29 @@ def time_pool(card):
     launches (``host_ms``), the checked wrapper (``wrapper_ms``, what the
     serving path pays) and the plain version (``plain_ms``). The floor a
     latency-bound kernel can reach: the device time of one launch that
-    does nearly nothing (a one-element fill), times the pool's launches
-    per call (``floor_ms``)."""
+    does nearly nothing (a one-element fill), the pool's one launch a call
+    (``floor_ms``), which the profiler must see at every T."""
     rows = {}
     fn = gated_pool._kernel()
     tiny = torch.zeros(1, device="cuda")
     launch_floor, how_floor = device_ms(tiny.zero_, 200)
     for t in POOL_TIMED_T:
         args = pool_inputs(t, 3, 1, seed=7)
-        nblk, tiles = gated_pool.pool_partition(t)
+        ints = gated_pool._fwd_shape(args[0], args[1])
+        cut = gated_pool.pool_fwd_partition(t)
         outs = [args[0].new_empty(s) for s in ((3, 1), (3, t), (3, t),
-                                               (3, nblk, 2))]
+                                               (cut[1], 3, 2))]
         ptrs = [x.data_ptr() for x in args + outs]
         stream = torch.cuda.current_stream().cuda_stream
 
         def raw():
-            return fn(*ptrs, t, 3, 1, tiles, nblk, stream)
+            return fn(*ptrs, *ints, stream)
 
         def plain():
             return gated_pool.gated_attention_pool_reference(*args)
 
         ms, how = device_ms(raw, 200, match="gated_pool_")
+        require_one_launch("gated_pool_forward", t, how)
         host_ms = time_cuda(raw, 500)
         n = gated_pool.LAUNCHES
         wrapper_ms = time_cuda(
@@ -539,8 +554,8 @@ def time_pool(card):
         plain_device, how_plain = device_ms(plain, 50)
         plain_ms = time_cuda(plain, 200)
         bound, bound_by = pool_bound_ms(t, 3, 1)
-        floor = launch_floor * (1 if nblk == 1 else 2)
-        rows[t] = {"ms": ms, **ms_how(how), "nblk": nblk,
+        floor = launch_floor
+        rows[t] = {"ms": ms, **ms_how(how), "cut": cut,
                    "floor_ms": floor, **ms_how(how_floor, "floor_ms"),
                    "host_ms": host_ms,
                    "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -548,7 +563,7 @@ def time_pool(card):
                    **ms_how(how_plain, "plain_device_ms"),
                    "bound_ms": bound, "bound_by": bound_by,
                    "bound_share": bound / ms}
-        emit({"phase": "pool_time", "T": t, "K": 3, "O": 1, "nblk": nblk,
+        emit({"phase": "pool_time", "T": t, "K": 3, "O": 1, "cut": cut,
               "kernel_device_us": 1e3 * ms, **ms_how(how),
               "kernel_host_us": 1e3 * host_ms,
               "wrapper_us": 1e3 * wrapper_ms, "plain_us": 1e3 * plain_ms,
@@ -623,7 +638,7 @@ def check_pool_backward():
 
 
 def require_one_launch(entry, t, how):
-    """Fail unless the profiler saw one launch a call of a backward entry:
+    """Fail unless the profiler saw one launch a call of a pool entry:
     its records over its calls in the fullest of ``device_ms``'s windows,
     rounded, since a window may still record a launch or a few short."""
     per_call = how.get("launches_per_call")
@@ -2200,10 +2215,11 @@ def bundle_phase(ckpt, one, big, hi, slides, card):
 # against the single-card path, two ranks on cuda:0 over gloo against the
 # world of one. The split entries are checked at every T the paths pool,
 # at a two-rank shard of a training subsample (250), just above each edge
-# of the backward's cluster sizes and at a 50k-tile bag; timed at the
-# one-pass slide and the 50k bag (the backward at 250 as well).
+# of the backward's cluster sizes, at each crossover of the forward's
+# partition -1..+2 and at a 50k-tile bag; timed at the one-pass slide and
+# the 50k bag (the backward at 250 as well).
 MESH_POOL_T = sorted(set(MAIN_PATH_T) | {POOL_REPEAT_T, 250}
-                     | {e + 1 for e in POOL_BWD_EDGES})
+                     | {e + 1 for e in POOL_BWD_EDGES} | set(POOL_FWD_CROSS))
 MESH_TIMED_T = (2000, 50000)
 # the split backward is timed at a two-rank shard of a training subsample
 # (250) as well
@@ -2341,9 +2357,9 @@ def time_split_pool(card):
     """One shard of the split forward (partials, then finish) at each T of
     MESH_TIMED_T and of the split backward (dM only) at each T of
     MESH_BWD_TIMED_T: device time per call (summed over its launches; each
-    backward entry timed alone as well, and required to be one launch a
-    call), CUDA-event time per call, the plain versions' time, the bound
-    (the one-call pool's bytes and operations)."""
+    entry timed alone as well, and required to be one launch a call),
+    CUDA-event time per call, the plain versions' time, the bound (the
+    one-call pool's bytes and operations)."""
     saved = pool_counts()
     rows = {"forward": {}, "backward": {}}
     for t in sorted(set(MESH_TIMED_T) | set(MESH_BWD_TIMED_T)):
@@ -2352,6 +2368,7 @@ def time_split_pool(card):
         dm = torch.randn((3, 1), generator=torch.Generator().manual_seed(3)
                          ).cuda()
         stats = gated_pool.pool_backward_partials(*args, a1t, dm)[0]
+        totals = gated_pool.pool_forward_partials(*args)
         cases = {}
         if t in MESH_TIMED_T:
             cases["forward"] = (
@@ -2374,23 +2391,28 @@ def time_split_pool(card):
             wrapper_ms = time_cuda(kernel, 200)
             plain_ms = time_cuda(plain, 100)
             per_entry = {}
-            if way == "backward":
-                for entry, fn in (
-                        ("gated_pool_backward_partials",
-                         lambda: gated_pool.pool_backward_partials(
-                             *args, a1t, dm)),
-                        ("gated_pool_backward_finish",
-                         lambda: gated_pool.pool_backward_finish(
-                             *args, stats, dm))):
-                    e_ms, e_how = device_ms(fn, 200, match="gated_pool_bwd")
-                    require_one_launch(entry, t, e_how)
-                    per_entry[entry] = {"ms": e_ms, **ms_how(e_how)}
-            rows[way][t] = {"ms": ms, **ms_how(how),
+            entries = ((
+                ("gated_pool_forward_partials",
+                 lambda: gated_pool.pool_forward_partials(*args)),
+                ("gated_pool_forward_finish",
+                 lambda: gated_pool.pool_forward_finish(*args, totals)))
+                if way == "forward" else (
+                ("gated_pool_backward_partials",
+                 lambda: gated_pool.pool_backward_partials(*args, a1t, dm)),
+                ("gated_pool_backward_finish",
+                 lambda: gated_pool.pool_backward_finish(*args, stats, dm))))
+            kernel_name = ("gated_pool_fwd" if way == "forward"
+                           else "gated_pool_bwd")
+            for entry, fn in entries:
+                e_ms, e_how = device_ms(fn, 200, match=kernel_name)
+                require_one_launch(entry, t, e_how)
+                per_entry[entry] = {"ms": e_ms, **ms_how(e_how)}
+            rows[way][t] = {"ms": ms, **ms_how(how), "by_entry": per_entry,
                             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": bound_by,
                             "bound_share": bound / ms}
             emit({"phase": "mesh_split_time", "entries": way, "T": t,
-                  "blocks": (gated_pool.pool_partition(t)[0]
+                  "blocks": (gated_pool.pool_fwd_partition(t)[1]
                              if way == "forward"
                              else gated_pool.pool_bwd_partition(t)[0]),
                   "kernel_device_us": 1e3 * ms, **ms_how(how),
@@ -4494,6 +4516,10 @@ def split_row(way, mesh_launches, max_err, times):
                               else "bwd partials + bwd finish, dM only")},
         "ms_by_T": {tt: r["ms"] for tt, r in times.items()},
         "bound_share_by_T": {tt: r["bound_share"] for tt, r in times.items()},
+        "launches_per_call_by_T": {tt: r["ms_launches_per_call"]
+                                   for tt, r in times.items()},
+        "by_entry_ms_by_T": {tt: {e: v["ms"] for e, v in r["by_entry"].items()}
+                             for tt, r in times.items()},
         "launches_by_path": by_path}
 
 
@@ -4521,6 +4547,9 @@ def main():
     bwd_ptxas = ptxas_report(_build.BUILD_LOG["gated_pool"], "gated_pool_bwd")
     emit({"phase": "ptxas_backward", "kernels": bwd_ptxas})
     require_no_spill(bwd_ptxas)
+    fwd_ptxas = ptxas_report(_build.BUILD_LOG["gated_pool"], "gated_pool_fwd")
+    emit({"phase": "ptxas_forward", "kernels": fwd_ptxas})
+    require_no_spill(fwd_ptxas)
     hmma = tensor_core_instructions(libs["u8_stem"])
     # the pool's library carries its forward and its backward
     entries = [gated_pool._kernel(e).__name__
@@ -4717,6 +4746,9 @@ def main():
         "ms_by_T": {t: r["ms"] for t, r in pool_times.items()},
         "bound_share_by_T": {t: r["bound_share"]
                              for t, r in pool_times.items()},
+        "launches_per_call_by_T": {t: r["ms_launches_per_call"]
+                                   for t, r in pool_times.items()},
+        "cut_by_T": {t: r["cut"] for t, r in pool_times.items()},
         "launches_by_path": launches}, {
         "name": "stem_u8_conv", "route": "cuda",
         "source": f"{PORT}/csrc/u8_stem.cu",

@@ -16,26 +16,66 @@
 // Bound on an H100 SXM: 20 bytes in (A_raw row of 3, B, mask) and 24 bytes
 // out (A1T and wROIs for 3 maps) per tile, 44 B/tile: 0.66 us at T = 50000
 // at 3.35 TB/s. The arithmetic is a few dozen operations per tile. So the
-// kernel is bound by latency: its launches, its passes over T and the
-// reduction of the L1 denominator, which every output waits for. No single
-// PyTorch call computes this function, so there is no library yardstick.
+// kernel is bound by latency: its launch, the loads each tile waits for,
+// its exponentials and logarithms, and the sums over T (the L1 denominator
+// and M), which every output waits for. No single PyTorch call computes
+// this function, so there is no library yardstick.
 //
-// Design. The tile axis is cut into nblk ranges of `range` tiles (the
-// wrapper's partition, ops/gated_pool.py:pool_partition), and block (j, k)
-// owns range j of attention map k, so K * nblk blocks share the work; the
-// TPU kernel held the whole bag in VMEM and capped it at 2560 tiles, here
-// there is no cap. Pass 1 (gated_pool_partial_kernel) computes sum |gated|
-// and sum gated * B[:, o] over its range, reduced across the block with warp
-// shuffles and shared memory, and writes them to scratch [K, nblk, 1+O].
-// Pass 2 (gated_pool_finish_kernel), the next launch on the same stream,
-// sums map k's nblk partials in a fixed order in every block (a few loads),
-// recomputes gated for its range (cheaper than storing it) and writes A1T
-// and wROIs; block (0, k) writes M[k]. When T fits one range (nblk = 1) the
-// first launch does both passes itself and there is no second launch and no
-// scratch. No float atomics: every sum has a fixed order, so two calls on
-// the same inputs give bit-identical outputs. Output columns o are taken in
-// groups of MAX_O so that any O works with the sums in registers; the main
-// path has O = 1.
+// Forward design (gated_pool_fwd_kernel): one kernel serves the three
+// forward entries through a mode (FwdMode), each entry one launch. A block
+// has 512 threads and owns tiles [rank * tiles, min(T, (rank + 1) * tiles))
+// (the wrapper's partition, ops/gated_pool.py:pool_fwd_partition).
+// - A thread owns a tile for all the maps of a pass (kMapGroup at a time, so
+//   any K works). It issues all of the tile's loads at once (the A_raw row,
+//   so that neighbouring threads read neighbouring rows; B[t, 0]; the mask),
+//   takes each map's softplus once (its exponentials, then its
+//   logarithms), and keeps gated in registers (kFwdHeld tiles a thread)
+//   across the wait for the denominator; a thread with more tiles reloads
+//   and recomputes them, from L2.
+// - The sums. A map's sums are sum |gated| and sum gated * B[:, o], the
+//   columns of its row of the [K, 1+O] table; a pass takes kSlots of them,
+//   a few columns of every map of the group (kCols, so any O works; K = 3,
+//   O = 1 is one pass). Each thread adds its tiles' terms in tile order,
+//   each warp reduce-scatters its sums into shared memory, and the block's
+//   last warp sums them over the warps in a fixed order (warp_partials,
+//   control_totals: the backward's reduction). Across blocks the sums are
+//   taken in rank order 0..C-1 as one sequence of float adds, so that every
+//   path gives the same bits from the same blocks:
+//   (i)  a thread-block cluster of C <= 16 blocks (C = 1 a plain launch):
+//        the blocks read each other's sums through distributed shared
+//        memory, so every block holds the totals with no scratch;
+//   (ii) a cooperative launch (cudaLaunchCooperativeKernel) of as many
+//        blocks as the tiles need, up to kMaxGrid, all co-resident: each
+//        block writes its sums to its row of a scratch table, the grid
+//        synchronises (cg::this_grid().sync()), and every block (the
+//        partials: block 0) stages the rows in shared memory and sums
+//        them, so that the one-call entry stays one launch and writes its
+//        outputs from registers. A
+//        cluster is not used here: at most 16 SMs, and a 16-block cluster
+//        made the backward slower at T = 50000 on an H100 (17.4 us against
+//        12.6 us for its earlier design of independent blocks).
+//   The wrapper picks the path and C by T, from a sweep on an H100. A
+//   ticket was measured too, for the partials (a plain launch whose last
+//   block, told by an integer counter after __threadfence(), sums the
+//   rows): no faster than the cluster or the grid on the H100, and it
+//   needs a zeroed integer that outlives a call, which launches on two
+//   streams of a device would share. So the cooperative grid was taken.
+// - Modes. The one-call entry (kFused) writes M (rank 0), then A1T and wROIs
+//   from the gated values it kept. The partials entry (kSums) writes the
+//   shard's [K, 1+O] table (rank 0). The finish entry (kOut) is a pure elementwise pass, one tile a thread in
+//   blocks of `tiles` threads (the wrapper's 128: a 512-thread block is
+//   bound by its SM's issue rate): its denominators and M come from the
+//   all-reduced totals with no sum. A1 and
+//   M are products with 1 / denom, one reciprocal a map as the backward
+//   takes it, not a division a tile; the plain version divides, and the two
+//   differ by a rounding (1.2e-7 of A1 at most).
+// - Bits. Every product, sum and reciprocal is written with explicit
+//   round-to-nearest intrinsics, so the compiler contracts nothing by
+//   context: the finish's recomputed gated has the bits of the one kept in
+//   registers, and the partials entry sums in the one-call entry's order
+//   (both cut T by pool_fwd_partition). So one shard of the split pair gives
+//   the one-call entry's outputs bit for bit, and two calls on the same
+//   inputs are bit-identical. sum |gated| keeps its fabsf: JAX's L1 norm.
 //
 // Backward (gated_pool_backward; replaces ops/pallas_pool.py:118 _pool_bwd),
 // given the forward's A1T and the cotangents dM [K,O], dA1T [K,T], dwROIs
@@ -103,11 +143,10 @@
 //
 // Split at the reduction (the multi-card mesh, ROADMAP B.1 (b)). When the
 // tile axis of a bag is split across ranks, the sums over T become sums
-// across ranks. The forward's kernels serve, cut where their passes meet:
-// gated_pool_forward_partials returns a shard's [K, 1+O] sums (pass 1, then
-// gated_pool_reduce_kernel over its ranges), the caller all-reduces them,
-// and gated_pool_forward_finish runs pass 2 from the totals. The backward's
-// kernel is cut the same way, one launch each: gated_pool_backward_partials
+// across ranks. Each kernel is cut where its sums over T meet, one launch
+// an entry: gated_pool_forward_partials returns a shard's [K, 1+O] sums,
+// the caller all-reduces them, and gated_pool_forward_finish writes M and
+// the shard's A1T and wROIs from the totals; gated_pool_backward_partials
 // runs phase 1 (the shard's [K, 2] table of denom and sum da1 * A1, its dB)
 // and gated_pool_backward_finish phase 2 from the all-reduced table (dA_raw,
 // and the shard's part of dw, which the parameter all-reduce sums). With
@@ -116,8 +155,9 @@
 // and K * 2 floats, so an all-reduce moves a few dozen bytes.
 //
 // C interface (loaded with ctypes): each entry returns cudaGetLastError()
-// after its launches, 0 on success; a backward entry returns kClusterUnfit
-// (-1) if no cluster of C blocks of its kernel fits on the card.
+// after its launch, 0 on success; an entry returns kClusterUnfit (-1) if no
+// cluster of its C blocks fits on the card, and a forward entry returns
+// kGridUnfit (-2) if its cooperative grid cannot be co-resident.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -127,25 +167,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int MAX_O = 8;
-
 // softplus_f(x) from e = expf(-|x|), so that a caller can take the
 // exponentials of several values before their logarithms
 __device__ __forceinline__ float softplus_of_exp(float x, float e) {
   return log1pf(e) + fmaxf(x, 0.0f);
-}
-
-__device__ __forceinline__ float softplus_f(float x) {
-  // the form of jax.nn.softplus (logaddexp(x, 0)), with no threshold
-  return softplus_of_exp(x, expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 struct Gate {
@@ -153,164 +178,7 @@ struct Gate {
   __device__ explicit Gate(float wk)
       : g1(1.0f / (1.0f + expf(10.0f * wk))),
         g0(1.0f / (1.0f + expf(-10.0f * wk))) {}
-  __device__ float operator()(const float* a_raw, const float* mask, int t,
-                              int K, int k) const {
-    return (g1 * softplus_f(a_raw[(size_t)t * K + k]) + g0) * mask[t];
-  }
 };
-
-// The block's sums over [t0, t1) of |gated| (s[0]) and gated * B[:, o0 + j]
-// (s[1 + j], j < n_o), in a fixed order; every thread gets them.
-__device__ void range_sums(const float* __restrict__ a_raw,
-                           const float* __restrict__ b,
-                           const float* __restrict__ mask, const Gate& gate,
-                           int t0, int t1, int K, int k, int O, int o0,
-                           int n_o, float (&s)[MAX_O + 1]) {
-  __shared__ float partial[kWarps][MAX_O + 1];
-  __shared__ float total[MAX_O + 1];
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int j = 0; j <= MAX_O; ++j) s[j] = 0.0f;
-#pragma unroll 4
-  for (int t = t0 + tid; t < t1; t += kThreads) {
-    const float gated = gate(a_raw, mask, t, K, k);
-    s[0] += fabsf(gated);
-    const float* brow = b + (size_t)t * O + o0;
-#pragma unroll
-    for (int j = 0; j < MAX_O; ++j)
-      if (j < n_o) s[j + 1] += gated * brow[j];
-  }
-#pragma unroll
-  for (int j = 0; j <= MAX_O; ++j) s[j] = warp_sum(s[j]);
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j <= MAX_O; ++j) partial[tid >> 5][j] = s[j];
-  }
-  __syncthreads();
-  if (tid <= MAX_O) {
-    float v = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) v += partial[i][tid];
-    total[tid] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j <= MAX_O; ++j) s[j] = total[j];
-  __syncthreads();  // partial/total are reused by the next call
-}
-
-// A1T and wROIs for tiles [t0, t1) of map k
-__device__ void write_range(const float* __restrict__ a_raw,
-                            const float* __restrict__ b,
-                            const float* __restrict__ mask, const Gate& gate,
-                            float denom, int t0, int t1, int T, int K, int k,
-                            int O, float* __restrict__ a1t,
-                            float* __restrict__ wrois) {
-  float* a1t_row = a1t + (size_t)k * T;
-  float* w_row = wrois + (size_t)k * T;
-#pragma unroll 4
-  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
-    const float a1 = gate(a_raw, mask, t, K, k) / denom;
-    a1t_row[t] = a1;
-    w_row[t] = a1 * b[(size_t)t * O];
-  }
-}
-
-// Pass 1 over range blockIdx.x of map blockIdx.y. With `finish` (the
-// one-call entry with one range) it also finishes: M[k], then A1T and wROIs.
-// Otherwise it writes the range's sums to scratch[k][j][0..O].
-__global__ void __launch_bounds__(kThreads)
-gated_pool_partial_kernel(const float* __restrict__ a_raw,
-                          const float* __restrict__ b,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ w, float* __restrict__ m,
-                          float* __restrict__ a1t, float* __restrict__ wrois,
-                          float* __restrict__ scratch, int T, int K, int O,
-                          int range, int finish) {
-  const int j = blockIdx.x;
-  const int k = blockIdx.y;
-  const int nblk = gridDim.x;
-  const int t0 = j * range;
-  const int t1 = min(T, t0 + range);
-  const Gate gate(w[k]);
-  float s[MAX_O + 1];
-  float denom = 1.0f;
-  for (int o0 = 0; o0 < O; o0 += MAX_O) {
-    const int n_o = min(MAX_O, O - o0);
-    range_sums(a_raw, b, mask, gate, t0, t1, K, k, O, o0, n_o, s);
-    if (finish) {
-      denom = fmaxf(s[0], 1e-12f);
-      if ((int)threadIdx.x < n_o)
-        m[(size_t)k * O + o0 + threadIdx.x] = s[threadIdx.x + 1] / denom;
-    } else {
-      float* dst = scratch + ((size_t)k * nblk + j) * (1 + O);
-      if (o0 == 0 && threadIdx.x == 0) dst[0] = s[0];
-      if ((int)threadIdx.x < n_o) dst[1 + o0 + threadIdx.x] = s[threadIdx.x + 1];
-    }
-  }
-  if (finish)
-    write_range(a_raw, b, mask, gate, denom, t0, t1, T, K, k, O, a1t, wrois);
-}
-
-// The sum over the nblk ranges of column c of map k's partials (rows of
-// `width` floats), in a fixed order (a thread's strided share, then the
-// block reduction); every thread gets it.
-__device__ float sum_partials(const float* __restrict__ scratch, int k,
-                              int nblk, int width, int c) {
-  __shared__ float part[kWarps];
-  const int tid = threadIdx.x;
-  float v = 0.0f;
-  for (int i = tid; i < nblk; i += kThreads)
-    v += scratch[((size_t)k * nblk + i) * width + c];
-  v = warp_sum(v);
-  if ((tid & 31) == 0) part[tid >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) total += part[i];
-  __syncthreads();  // part is reused by the next call
-  return total;
-}
-
-// Pass 2 over range blockIdx.x of map blockIdx.y: the denominator from the
-// n_part rows of partials of map k (the nblk ranges' in the one-call entry,
-// one row of totals in the split one), M[k] (block 0), then A1T and wROIs
-// for the range.
-__global__ void __launch_bounds__(kThreads)
-gated_pool_finish_kernel(const float* __restrict__ a_raw,
-                         const float* __restrict__ b,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ w, float* __restrict__ m,
-                         float* __restrict__ a1t, float* __restrict__ wrois,
-                         const float* __restrict__ scratch, int T, int K,
-                         int O, int range, int n_part) {
-  const int j = blockIdx.x;
-  const int k = blockIdx.y;
-  const float denom =
-      fmaxf(sum_partials(scratch, k, n_part, 1 + O, 0), 1e-12f);
-  if (j == 0) {
-    for (int o = 0; o < O; ++o) {
-      const float s = sum_partials(scratch, k, n_part, 1 + O, 1 + o);
-      if (threadIdx.x == 0) m[(size_t)k * O + o] = s / denom;
-    }
-  }
-  const int t0 = j * range;
-  write_range(a_raw, b, mask, Gate(w[k]), denom, t0, min(T, t0 + range), T, K,
-              k, O, a1t, wrois);
-}
-
-// One block per map: row k of `out` [K, width] is the sum over the nblk
-// ranges of map k's partials (scratch [K, nblk, width]), in sum_partials'
-// fixed order, the order in which the one-call entries sum them.
-__global__ void __launch_bounds__(kThreads)
-gated_pool_reduce_kernel(const float* __restrict__ scratch,
-                         float* __restrict__ out, int nblk, int width) {
-  const int k = blockIdx.x;
-  for (int c = 0; c < width; ++c) {
-    const float v = sum_partials(scratch, k, nblk, width, c);
-    if (threadIdx.x == 0) out[(size_t)k * width + c] = v;
-  }
-}
 
 // ------------------------------------------------------------- backward
 
@@ -880,30 +748,432 @@ BwdArgs bwd_args(const void* a_raw, const void* b, const void* mask,
   return a;
 }
 
+// -------------------------------------------------------------- forward
+
+constexpr int kFwdThreads = 512;
+static_assert(kFwdThreads == kBwdThreads, "control_totals' 16 warps");
+// Tiles a thread keeps in registers between its sums and its writes: a
+// tile is kMapGroup gated values and B[t, 0], 4 floats at K = 3, O = 1,
+// with their loads in flight before. Three tiles (1536 a block) built with
+// 127-128 registers and no spill for the H100; four spilled (128
+// registers, 76 bytes of spill stores). A thread with more tiles
+// recomputes them.
+constexpr int kFwdHeld = 3;
+// the largest grid of path (ii): one block an SM of the H100's 132 fits
+// under __launch_bounds__(kFwdThreads, 1), and the staged rows fit in
+// shared memory (4 KB)
+constexpr int kMaxGrid = 128;
+constexpr int kGridUnfit = -2;
+
+enum FwdMode { kFused = 0, kSums = 1, kOut = 2 };
+
+struct FwdArgs {
+  const float* a_raw;   // [T, K]
+  const float* b;       // [T, O]
+  const float* mask;    // [T]
+  const float* w;       // [K]
+  const float* totals;  // [K, 1+O], the finish's all-reduced sums
+  float* m;             // [K, O]
+  float* a1t;           // [K, T]
+  float* wrois;         // [K, T]
+  float* sums;          // [K, 1+O], the partials' output
+  float* rows;          // [blocks, K, 1+O], path (ii)'s blocks' sums
+  int T, K, O, tiles, mode, grid;  // grid: 1 on path (ii)
+};
+
+struct FwdShared {
+  float partial[2][kBwdWarps][kSlots];
+  float pub[2][kSlots];
+  float stage[kMaxGrid][kSlots];  // path (ii)'s rows of one pass
+  float g1[kMapGroup], g0[kMapGroup], inv[kMapGroup];  // inv: 1 / denom
+};
+
+// One tile's loads for maps k0 .. k0 + NK - 1, all issued before any is
+// used
+template <int NK>
+struct FwdTile {
+  float x[NK];  // A_raw[t, k0 + j]
+  float b0;     // B[t, 0]
+  float m;      // mask[t]
+};
+
+template <int NK>
+__device__ __forceinline__ void fwd_loads(const FwdArgs& a, int t, int k0,
+                                          FwdTile<NK>& l) {
+  const float* row = a.a_raw + (size_t)t * a.K + k0;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) l.x[j] = __ldg(row + j);
+  l.b0 = __ldg(a.b + (size_t)t * a.O);
+  l.m = __ldg(a.mask + t);
+}
+
+// gated of the NK maps (0 for a tile that is not `live`): the exponentials
+// of the maps first, then their logarithms, so that their chains overlap
+template <int NK>
+__device__ __forceinline__ void fwd_gated(const FwdTile<NK>& l,
+                                          const float (&g1)[NK],
+                                          const float (&g0)[NK], bool live,
+                                          float (&g)[NK]) {
+  float e[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) e[j] = expf(-fabsf(l.x[j]));
+  const float m = live ? l.m : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float act = __fadd_rn(log1pf(e[j]), fmaxf(l.x[j], 0.0f));
+    g[j] = __fmul_rn(__fadd_rn(__fmul_rn(g1[j], act), g0[j]), m);
+  }
+}
+
+// A pass takes kCols<NK> columns of the maps' rows of the [K, 1+O] table
+// (column 0 sum |gated|, column 1 + o sum gated * B[:, o]), starting at
+// column c0: slot q holds map q % NK's column c0 + q / NK, so that a
+// slot's map is known at compile time. A column past O is no slot's.
+template <int NK>
+constexpr int kCols = kSlots / NK;
+
+// tile t's terms of the pass's sums, added in tile order
+template <int NK>
+__device__ __forceinline__ void add_terms(const FwdArgs& a, int t,
+                                          const float (&g)[NK], float b0,
+                                          int c0, float (&s)[kSlots]) {
+  const float* brow = a.b + (size_t)t * a.O;
+#pragma unroll
+  for (int cc = 0; cc < kCols<NK>; ++cc) {
+    const int c = c0 + cc;
+    if (c > a.O) break;
+    const float bv = c <= 1 ? b0 : __ldg(brow + c - 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float term = c == 0 ? fabsf(g[j]) : __fmul_rn(g[j], bv);
+      s[cc * NK + j] = __fadd_rn(s[cc * NK + j], term);
+    }
+  }
+}
+
+// tile t's A1T and wROIs of the NK maps
+template <int NK>
+__device__ __forceinline__ void fwd_write(const FwdArgs& a, int t, int k0,
+                                          const float (&g)[NK], float b0,
+                                          const float (&inv)[NK]) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float a1 = __fmul_rn(g[j], inv[j]);
+    const size_t kt = (size_t)(k0 + j) * a.T + t;
+    a.a1t[kt] = a1;
+    a.wrois[kt] = __fmul_rn(a1, b0);
+  }
+}
+
+// The [K, 1+O] table's entry of slot q of a pass over maps k0.. of NK
+// from column c0, or -1 if the slot holds none
+template <int NK>
+__device__ __forceinline__ int slot_entry(int q, int k0, int c0, int W) {
+  const int c = c0 + q / NK;
+  return q < NK * kCols<NK> && c < W ? (k0 + q % NK) * W + c : -1;
+}
+
+// Path (ii), after the grid barrier: each slot's entry of the blocks' rows
+// (rows [B, K * (1+O)]) summed over the rows in rank order 0..B-1, one
+// float add at a time, as control_totals sums a cluster's. The block
+// stages the rows in shared memory, all its loads at once (from L2: other
+// SMs wrote them); the control warp's lane q < kSlots returns slot q's.
+template <int NK>
+__device__ __forceinline__ float grid_totals(const FwdArgs& a, int k0, int c0,
+                                             int B, float (*stage)[kSlots]) {
+  const int W = 1 + a.O;
+  for (int i = threadIdx.x; i < B * kSlots; i += blockDim.x) {
+    const int r = i / kSlots, q = i % kSlots;
+    const int e = slot_entry<NK>(q, k0, c0, W);
+    stage[r][q] = e >= 0 ? __ldcg(a.rows + (size_t)r * a.K * W + e) : 0.0f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+  if ((int)(threadIdx.x >> 5) == kBwdWarps - 1 && lane < kSlots) {
+    s = stage[0][lane];
+#pragma unroll 8
+    for (int r = 1; r < B; ++r) s = __fadd_rn(s, stage[r][lane]);
+  }
+  return s;
+}
+
+// The control warp after a pass: lane q holds slot q's total. The
+// partials' rank 0 writes its entry of the table; the one-call entry keeps
+// 1 / denom of each map (column 0, all in the first pass) in shared
+// memory, and its rank 0 writes M from them.
+template <int NK>
+__device__ __forceinline__ void fwd_pass_out(const FwdArgs& a, int k0, int c0,
+                                             int rank, float tot,
+                                             FwdShared& sh) {
+  const int W = 1 + a.O;
+  const int q = threadIdx.x & 31;
+  const int e = q < kSlots ? slot_entry<NK>(q, k0, c0, W) : -1;
+  const int j = q % NK, c = c0 + q / NK;
+  if (a.mode == kSums) {
+    if (e >= 0 && rank == 0) a.sums[e] = tot;
+    return;
+  }
+  if (e >= 0 && c == 0) sh.inv[j] = __frcp_rn(fmaxf(tot, 1e-12f));
+  __syncwarp();
+  if (e >= 0 && c > 0 && rank == 0)
+    a.m[(size_t)(k0 + j) * a.O + c - 1] = __fmul_rn(tot, sh.inv[j]);
+}
+
+// Maps k0 .. k0 + NK - 1 over the block's tiles [t0, t1): see the note at
+// the top. `pass` numbers the passes (see control_totals).
+template <int NK>
+__device__ __forceinline__ void fwd_group(const FwdArgs& a, int k0, int rank,
+                                          unsigned int n, int t0, int t1,
+                                          FwdShared& sh, int& pass) {
+  const int tid = threadIdx.x;
+  const bool control = (tid >> 5) == kBwdWarps - 1;
+  const int W = 1 + a.O;
+  // kFwdThreads, or the finish's block of one tile a thread
+  const int nthr = blockDim.x;
+  // block-uniform: the rounds of nthr tiles the block takes
+  const int rounds = t1 > t0 ? (t1 - t0 + nthr - 1) / nthr : 0;
+  // warp-uniform: the rounds in which the warp has a tile; its lanes past
+  // t1 take the last tile's loads and add zeros
+  const int warp_t0 = t0 + (tid & ~31);
+  const bool live_warp = warp_t0 < t1;
+  const int warp_rounds =
+      live_warp
+          ? min(rounds, (t1 - warp_t0 + nthr - 1) / nthr)
+          : 0;
+  // every load first: the gate's weights, the finish's denominators, the
+  // held tiles
+  float w_own = 0.0f, tot_own = 0.0f;
+  if (tid < NK) {
+    w_own = __ldg(a.w + k0 + tid);
+    if (a.mode == kOut) tot_own = __ldg(a.totals + (k0 + tid) * W);
+  }
+  FwdTile<NK> held[kFwdHeld];
+#pragma unroll
+  for (int i = 0; i < kFwdHeld; ++i)
+    if (i < warp_rounds)
+      fwd_loads(a, min(t0 + tid + i * nthr, t1 - 1), k0, held[i]);
+  if (tid < NK) {
+    const Gate gate(w_own);
+    sh.g1[tid] = gate.g1;
+    sh.g0[tid] = gate.g0;
+    if (a.mode == kOut) sh.inv[tid] = __frcp_rn(fmaxf(tot_own, 1e-12f));
+  }
+  __syncthreads();  // sh.g1, sh.g0 (and the finish's sh.inv)
+  float g1[NK], g0[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    g1[j] = sh.g1[j];
+    g0[j] = sh.g0[j];
+  }
+  float gated[kFwdHeld][NK];
+#pragma unroll
+  for (int i = 0; i < kFwdHeld; ++i)
+    if (i < warp_rounds)
+      fwd_gated(held[i], g1, g0, t0 + tid + i * nthr < t1, gated[i]);
+
+  if (a.mode != kOut) {
+    for (int c0 = 0; c0 < W; c0 += kCols<NK>, ++pass) {
+      float s[kSlots];
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) s[q] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kFwdHeld; ++i)
+        if (i < warp_rounds)
+          add_terms(a, min(t0 + tid + i * nthr, t1 - 1), gated[i],
+                    held[i].b0, c0, s);
+#pragma unroll 1
+      for (int i = kFwdHeld; i < warp_rounds; ++i) {
+        const int t = t0 + tid + i * nthr;
+        FwdTile<NK> l;
+        float g[NK];
+        fwd_loads(a, min(t, t1 - 1), k0, l);
+        fwd_gated(l, g1, g0, t < t1, g);
+        add_terms(a, min(t, t1 - 1), g, l.b0, c0, s);
+      }
+      warp_partials(s, live_warp, sh.partial[pass & 1]);
+      float tot = 0.0f;  // the control warp's lane q: slot q's
+      if (a.grid) {
+        if (control) {
+          const float mine =
+              control_totals<kSlots>(sh.partial[pass & 1], sh.pub[pass & 1],
+                                     1u);
+          const int q = tid & 31;
+          const int e = q < kSlots ? slot_entry<NK>(q, k0, c0, W) : -1;
+          if (e >= 0) {
+            a.rows[(size_t)rank * a.K * W + e] = mine;
+            __threadfence();
+          }
+        }
+        cg::this_grid().sync();
+        if (a.mode == kFused || rank == 0)
+          tot = grid_totals<NK>(a, k0, c0, gridDim.x, sh.stage);
+      } else if (control) {
+        tot = control_totals<kSlots>(sh.partial[pass & 1], sh.pub[pass & 1],
+                                     n);
+      } else {
+        cluster_sync_others(n);
+      }
+      if (control) fwd_pass_out<NK>(a, k0, c0, rank, tot, sh);
+    }
+    if (a.mode == kSums) return;
+    __syncthreads();  // sh.inv
+  } else if (rank == 0) {
+    // the finish: M from the totals
+    for (int i = tid; i < NK * a.O; i += nthr) {
+      const int j = i / a.O, o = i - j * a.O;
+      a.m[(size_t)(k0 + j) * a.O + o] =
+          __fmul_rn(__ldg(a.totals + (k0 + j) * W + 1 + o), sh.inv[j]);
+    }
+  }
+  float inv[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) inv[j] = sh.inv[j];
+#pragma unroll
+  for (int i = 0; i < kFwdHeld; ++i) {
+    const int t = t0 + tid + i * nthr;
+    if (i < warp_rounds && t < t1)
+      fwd_write(a, t, k0, gated[i], held[i].b0, inv);
+  }
+#pragma unroll 1
+  for (int i = kFwdHeld; i < warp_rounds; ++i) {
+    const int t = t0 + tid + i * nthr;
+    FwdTile<NK> l;
+    float g[NK];
+    fwd_loads(a, min(t, t1 - 1), k0, l);
+    fwd_gated(l, g1, g0, t < t1, g);
+    if (t < t1) fwd_write(a, t, k0, g, l.b0, inv);
+  }
+}
+
+// One launch: see the note at the top. Block r owns tiles [r * tiles,
+// min(T, (r + 1) * tiles)); on path (i) the grid is one cluster, so r is
+// the block's rank in it.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+gated_pool_fwd_kernel(const FwdArgs a) {
+  __shared__ FwdShared sh;
+  const int rank = blockIdx.x;
+  const unsigned int n = (a.grid || a.mode == kOut) ? 1u : gridDim.x;
+  const int t0 = rank * a.tiles;
+  const int t1 = min(a.T, t0 + a.tiles);
+  for (int k0 = 0, pass = 0; k0 < a.K; k0 += kMapGroup) {
+    if (k0 > 0) __syncthreads();  // the last group's readers of sh
+    switch (min(kMapGroup, a.K - k0)) {
+      case 1: fwd_group<1>(a, k0, rank, n, t0, t1, sh, pass); break;
+      case 2: fwd_group<2>(a, k0, rank, n, t0, t1, sh, pass); break;
+      default: fwd_group<3>(a, k0, rank, n, t0, t1, sh, pass);
+    }
+  }
+  if (n > 1) cg::this_cluster().sync();  // peers may still read sh.pub
+}
+
+// Launch gated_pool_fwd_kernel: the finish, and path (i) with one block,
+// as a plain launch; path (i) as one cluster of `blocks` (the first launch
+// of each size checks that such a cluster fits, as launch_bwd does); path
+// (ii) as a cooperative launch, refused with kGridUnfit above kMaxGrid or
+// above what can be co-resident on the card. Nothing is shrunk to fit.
+int launch_fwd(const FwdArgs& args, int blocks, void* stream) {
+  static bool fits[kMaxCluster + 1] = {};
+  static int co_resident = 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (args.mode == kOut) {
+    // one tile a thread: whole warps, at most kFwdThreads
+    if (args.tiles < 32 || args.tiles > kFwdThreads || args.tiles % 32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    gated_pool_fwd_kernel<<<blocks, args.tiles, 0, s>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!args.grid && blocks == 1) {
+    gated_pool_fwd_kernel<<<1, kFwdThreads, 0, s>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (args.grid) {
+    if (blocks > kMaxGrid) return kGridUnfit;
+    if (co_resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(
+               &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, gated_pool_fwd_kernel, kFwdThreads, 0)) !=
+              cudaSuccess)
+        return static_cast<int>(err);
+      co_resident = sms * per_sm;
+    }
+    if (blocks > co_resident) return kGridUnfit;
+    void* params[] = {const_cast<FwdArgs*>(&args)};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(gated_pool_fwd_kernel), dim3(blocks),
+        dim3(kFwdThreads), params, 0, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (blocks > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (!fits[blocks]) {
+    if (blocks > 8) {
+      err = cudaFuncSetAttribute(gated_pool_fwd_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, gated_pool_fwd_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n < 1) return kClusterUnfit;
+    fits[blocks] = true;
+  }
+  err = cudaLaunchKernelEx(&cfg, gated_pool_fwd_kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+FwdArgs fwd_args(const void* a_raw, const void* b, const void* mask,
+                 const void* w, int T, int K, int O, int tiles, int mode,
+                 int grid) {
+  FwdArgs a = {};
+  a.a_raw = static_cast<const float*>(a_raw);
+  a.b = static_cast<const float*>(b);
+  a.mask = static_cast<const float*>(mask);
+  a.w = static_cast<const float*>(w);
+  a.T = T;
+  a.K = K;
+  a.O = O;
+  a.tiles = tiles;
+  a.mode = mode;
+  a.grid = grid;
+  return a;
+}
+
 }  // namespace
 
+// One launch of `blocks` blocks of `tiles` tiles (pool_fwd_partition): one
+// cluster (grid = 0) or a cooperative grid whose blocks write their sums
+// to rows [blocks, K, 1+O] (grid = 1; rows unused otherwise).
 extern "C" int gated_pool_forward(const void* a_raw, const void* b,
                                   const void* mask, const void* w, void* m,
-                                  void* a1t, void* wrois, void* scratch, int T,
-                                  int K, int O, int range, int nblk,
-                                  void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nblk, K);
-  gated_pool_partial_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), static_cast<const float*>(w),
-      static_cast<float*>(m), static_cast<float*>(a1t),
-      static_cast<float*>(wrois), static_cast<float*>(scratch), T, K, O,
-      range, nblk == 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
-  gated_pool_finish_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), static_cast<const float*>(w),
-      static_cast<float*>(m), static_cast<float*>(a1t),
-      static_cast<float*>(wrois), static_cast<const float*>(scratch), T, K, O,
-      range, nblk);
-  return static_cast<int>(cudaGetLastError());
+                                  void* a1t, void* wrois, void* rows, int T,
+                                  int K, int O, int tiles, int blocks,
+                                  int grid, void* stream) {
+  FwdArgs a = fwd_args(a_raw, b, mask, w, T, K, O, tiles, kFused, grid);
+  a.m = static_cast<float*>(m);
+  a.a1t = static_cast<float*>(a1t);
+  a.wrois = static_cast<float*>(wrois);
+  a.rows = static_cast<float*>(rows);
+  return launch_fwd(a, blocks, stream);
 }
 
 // da1t and dwr may be null, dm too; each is then a zero cotangent. One
@@ -926,51 +1196,43 @@ extern "C" int gated_pool_backward(const void* a_raw, const void* b,
 
 // ------------------------------------------------- split at the reduction
 //
-// The entries below are the one-call entries cut where their passes meet:
-// at the sums over T. A bag whose tile axis is split across ranks
-// (parallel/mesh.py) calls the partials entry on its shard, all-reduces the
-// small table it returns across the ranks, and calls the finish entry with
-// the totals. The forward's partials sum a shard's ranges in sum_partials'
-// fixed order (gated_pool_reduce_kernel), the backward's in the cluster's,
-// as the one-call entries sum them, so a split call on a single shard gives
-// the one-call entry's outputs bit for bit.
+// The entries below are the one-call entries cut where their sums over T
+// meet. A bag whose tile axis is split across ranks (parallel/mesh.py)
+// calls the partials entry on its shard, all-reduces the small table it
+// returns across the ranks, and calls the finish entry with the totals.
+// Each is one launch of the one-call entry's kernel; the partials entry
+// cuts T as the one-call entry does and sums in its order, so a split call
+// on a single shard gives the one-call entry's outputs bit for bit.
 
-// partials [K, 1+O] = (sum_T gated, sum_T gated * B[:, o]) over this shard;
-// scratch: K * nblk * (1+O) floats when nblk > 1 (unused otherwise).
+// partials [K, 1+O] = (sum_T |gated|, sum_T gated * B[:, o]) over this
+// shard, in one launch of the one-call entry's partition; rows as there.
 extern "C" int gated_pool_forward_partials(const void* a_raw, const void* b,
                                            const void* mask, const void* w,
-                                           void* partials, void* scratch,
-                                           int T, int K, int O, int range,
-                                           int nblk, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(partials);
-  float* rows = nblk == 1 ? out : static_cast<float*>(scratch);
-  gated_pool_partial_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), static_cast<const float*>(w), nullptr,
-      nullptr, nullptr, rows, T, K, O, range, 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
-  gated_pool_reduce_kernel<<<K, kThreads, 0, s>>>(rows, out, nblk, 1 + O);
-  return static_cast<int>(cudaGetLastError());
+                                           void* partials, void* rows, int T,
+                                           int K, int O, int tiles,
+                                           int blocks, int grid,
+                                           void* stream) {
+  FwdArgs a = fwd_args(a_raw, b, mask, w, T, K, O, tiles, kSums, grid);
+  a.sums = static_cast<float*>(partials);
+  a.rows = static_cast<float*>(rows);
+  return launch_fwd(a, blocks, stream);
 }
 
-// From the all-reduced totals [K, 1+O]: M [K, O], and this shard's A1T and
-// wROIs columns [K, T].
+// From the all-reduced totals [K, 1+O], in one elementwise launch of
+// `blocks` blocks of `tiles` tiles (one a thread): M [K, O], and this
+// shard's A1T and wROIs columns [K, T].
 extern "C" int gated_pool_forward_finish(const void* a_raw, const void* b,
                                          const void* mask, const void* w,
                                          const void* totals, void* m,
                                          void* a1t, void* wrois, int T, int K,
-                                         int O, int range, int nblk,
+                                         int O, int tiles, int blocks,
                                          void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gated_pool_finish_kernel<<<dim3(nblk, K), kThreads, 0, s>>>(
-      static_cast<const float*>(a_raw), static_cast<const float*>(b),
-      static_cast<const float*>(mask), static_cast<const float*>(w),
-      static_cast<float*>(m), static_cast<float*>(a1t),
-      static_cast<float*>(wrois), static_cast<const float*>(totals), T, K, O,
-      range, 1);
-  return static_cast<int>(cudaGetLastError());
+  FwdArgs a = fwd_args(a_raw, b, mask, w, T, K, O, tiles, kOut, 0);
+  a.totals = static_cast<const float*>(totals);
+  a.m = static_cast<float*>(m);
+  a.a1t = static_cast<float*>(a1t);
+  a.wrois = static_cast<float*>(wrois);
+  return launch_fwd(a, blocks, stream);
 }
 
 // stats [K, 2] = (sum_T gated, sum_T da1 * A1) over this shard, and this

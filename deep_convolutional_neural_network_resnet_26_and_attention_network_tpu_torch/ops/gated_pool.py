@@ -14,12 +14,14 @@ Counterpart of ``ops/pallas_pool.py`` in the JAX package (TPU kernel
 tensors its forward and backward launch ``csrc/gated_pool.cu``, for CPU
 tensors they take :func:`gated_attention_pool_reference` and
 :func:`gated_attention_pool_backward_reference`. The kernels have no cap on
-T. The forward's :func:`pool_partition` cuts the tile axis into ranges,
-one block per (range, map), and a second launch finishes once the ranges'
-partial sums are in. The backward is one launch: one block, or above
-1024 tiles one thread-block cluster whose blocks exchange their sums over
-T in distributed shared memory; :func:`pool_bwd_partition` picks the
-cluster's size and each block's tiles. The mask gets no gradient. A cotangent that autograd does not
+T, and each entry is one launch. The forward's :func:`pool_fwd_partition`
+picks its path by T: one block or one thread-block cluster whose blocks
+exchange their sums over T in distributed shared memory, or above
+``FWD_CLUSTERS``' last T a cooperative grid whose blocks exchange them
+through a scratch table of their rows. The backward is one block, or
+above 1024 tiles one cluster;
+:func:`pool_bwd_partition` picks the cluster's size and each block's
+tiles. The mask gets no gradient. A cotangent that autograd does not
 materialise (an output that feeds no loss, such as the detached ``A1^T``
 and ``wROIs`` of the training path) reaches the backward as ``None``, and
 the kernel skips it instead of reading a tensor of zeros.
@@ -50,31 +52,55 @@ from . import _build
 from . import nn as N
 from .collectives import all_reduce_
 
-# tiles a block of the kernel owns (csrc/gated_pool.cu: 512 threads, four
-# tiles each); a bag of at most this many tiles takes one launch
-POOL_RANGE = 2048
-
 # wrapper calls that launched the CUDA forward kernel in this process, one
-# or two launches each (not the plain version's calls)
+# launch each (not the plain version's calls)
 LAUNCHES = 0
 # wrapper calls that launched the CUDA backward kernel, one launch each
 BWD_LAUNCHES = 0
 # wrapper calls that launched the split entries (one shard of a
-# tile-sharded bag): the forward's partials (one or two launches) and
-# finish (one), the backward's partials (one) and finish (one)
+# tile-sharded bag), one launch each: the forward's partials and finish,
+# the backward's partials and finish
 PARTIAL_LAUNCHES = 0
 FINISH_LAUNCHES = 0
 BWD_PARTIAL_LAUNCHES = 0
 BWD_FINISH_LAUNCHES = 0
 
+# The forward kernel's paths by T (csrc/gated_pool.cu, 512 threads a
+# block). Path (i), up to the last row's T: one cluster of C blocks, (largest
+# T, C) (C = 1 is a plain launch of one block). Above it path (ii): a
+# cooperative grid of FWD_GRID_TILES tiles a block, at most FWD_MAX_GRID
+# blocks (the kernel's kMaxGrid; above FWD_MAX_GRID * FWD_GRID_TILES tiles
+# a block takes more than one round). One block holds 1536 tiles in
+# registers (the kernel's kFwdHeld rounds); the edges are where the cuts'
+# times crossed in a sweep (tools/torch_pool_fwd_sweep.py) on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md). The finish's 128-thread blocks beat
+# 256 and 512 at every swept T.
+FWD_CLUSTERS = ((1536, 1), (4096, 8))
+FWD_GRID_TILES = 512
+FWD_MAX_GRID = 128
+# the finish entry: one tile a thread of a FWD_FINISH_TILES-thread block
+FWD_FINISH_TILES = 128
+# the T at which pool_fwd_partition changes its path, its cluster size or
+# its tiles a thread
+FWD_EDGES = tuple(top for top, _ in FWD_CLUSTERS) + (
+    FWD_MAX_GRID * FWD_GRID_TILES,)
 
-def pool_partition(t):
-    """The kernel's cut of ``t`` tiles: ``(nblk, range)``, block j owning
-    tiles ``[j * range, min(t, (j + 1) * range))``. ``nblk == 1`` (one
-    launch, no scratch) exactly when ``t <= POOL_RANGE``."""
+
+def pool_fwd_partition(t):
+    """The forward kernel's cut of ``t`` tiles, a function of ``t`` alone:
+    ``(path, blocks, tiles)``, one launch of ``blocks`` blocks, block r
+    owning tiles ``[r * tiles, min(t, (r + 1) * tiles))``; ``path`` is
+    ``"cluster"`` (path (i)) or ``"grid"`` (path (ii), whose blocks write
+    their sums to a scratch table of ``blocks`` rows). The one-call entry
+    and the split partials both cut T here, so the partials of a single
+    shard sum in the one-call entry's order."""
     if t < 1:
         raise ValueError("need T >= 1 tiles")
-    return -(-t // POOL_RANGE), POOL_RANGE
+    for top, c in FWD_CLUSTERS:
+        if t <= top:
+            return "cluster", c, -(-t // c)
+    blocks = min(FWD_MAX_GRID, -(-t // FWD_GRID_TILES))
+    return "grid", blocks, -(-t // blocks)
 
 
 # The backward kernel's cluster size by T: (largest T, blocks), one block
@@ -231,15 +257,20 @@ def _check(a_raw, b, mask, weight_mask):
     return device
 
 
-# the C entries of csrc/gated_pool.cu: their pointer arguments, each
-# followed by 5 ints (T, K, O, then the forward's range and nblk or the
-# backward's tiles and cluster size) and the stream
-ENTRIES = {"gated_pool_forward": 8, "gated_pool_backward": 11,
-           "gated_pool_forward_partials": 6, "gated_pool_forward_finish": 8,
-           "gated_pool_backward_partials": 10,
-           "gated_pool_backward_finish": 10}
-# what a backward entry returns when no cluster of its size fits on the card
+# the C entries of csrc/gated_pool.cu: (pointer arguments, int arguments)
+# before the stream. The ints are T, K, O, tiles a block and blocks; the
+# forward's one-call and partials entries add the path (1 for the
+# cooperative grid, pool_fwd_partition's "grid")
+ENTRIES = {"gated_pool_forward": (8, 6), "gated_pool_backward": (11, 5),
+           "gated_pool_forward_partials": (6, 6),
+           "gated_pool_forward_finish": (8, 5),
+           "gated_pool_backward_partials": (10, 5),
+           "gated_pool_backward_finish": (10, 5)}
+# what an entry returns when no cluster of its size fits on the card, and
+# what a forward entry returns when its cooperative grid cannot be
+# co-resident
 CLUSTER_UNFIT = -1
+GRID_UNFIT = -2
 
 
 def _kernel(entry="gated_pool_forward"):
@@ -247,8 +278,8 @@ def _kernel(entry="gated_pool_forward"):
     signature set (``ENTRIES``)."""
     fn = getattr(_build.load("gated_pool"), entry)
     if fn.argtypes is None:
-        n_ptr = ENTRIES[entry]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+        n_ptr, n_int = ENTRIES[entry]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -281,21 +312,32 @@ def _call(entry, *ptrs_and_shape, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernel(entry)(*ptrs_and_shape, stream)
-    if rc == CLUSTER_UNFIT:
+    if rc in (CLUSTER_UNFIT, GRID_UNFIT):
+        ints = ptrs_and_shape[ENTRIES[entry][0]:]
         raise RuntimeError(
-            f"{entry} refused: no cluster of {ptrs_and_shape[-1]} blocks of "
-            "its kernel fits on this card (cudaOccupancyMaxActiveClusters "
-            "is 0)")
+            f"{entry} refused: no "
+            + ("cluster" if rc == CLUSTER_UNFIT else "co-resident grid")
+            + f" of {ints[4]} blocks of its kernel fits on this card "
+            f"(T, K, O, tiles, blocks: {ints[:5]})")
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
 
 
-def _shape(a_raw, b):
+def _fwd_shape(a_raw, b):
+    """The one-call and partials entries' six ints: T, K, O, tiles a
+    block, blocks, and the path (pool_fwd_partition; 1 for "grid")."""
     t, k = a_raw.shape
     o = b.shape[1]
     _limits(t, k, o)
-    nblk, tiles = pool_partition(t)
-    return t, k, o, tiles, nblk
+    path, blocks, tiles = pool_fwd_partition(t)
+    return t, k, o, tiles, blocks, int(path == "grid")
+
+
+def _rows(device, shape):
+    """Path (ii)'s scratch table, a row of [K, 1+O] sums a block; none on
+    path (i)."""
+    _, k, o, _, blocks, grid = shape
+    return _empty(device, blocks, k, 1 + o) if grid else None
 
 
 def _bwd_shape(a_raw, b):
@@ -316,15 +358,14 @@ def _launch(a_raw, b, mask, weight_mask):
     global LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
+    shape = _fwd_shape(a_raw, b)
+    t, k, o = shape[:3]
     dev = a_raw.device
     m, a1t, wrois = _empty(dev, k, o), _empty(dev, k, t), _empty(dev, k, t)
-    # the ranges' partial sums, for the second launch; none with one range
-    scratch = _empty(dev, k, nblk, 1 + o) if nblk > 1 else None
     _call("gated_pool_forward", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), m.data_ptr(),
-          a1t.data_ptr(), wrois.data_ptr(), _ptr(scratch), t, k, o, tiles,
-          nblk, device=dev)
+          a1t.data_ptr(), wrois.data_ptr(), _ptr(_rows(dev, shape)), *shape,
+          device=dev)
     LAUNCHES += 1
     return m, a1t, wrois
 
@@ -424,18 +465,21 @@ def pool_forward_partials(a_raw, b, mask, weight_mask):
     """A shard's ``[K, 1+O]`` sums over its rows (sum |gated|, sum
     gated * B): ``gated_pool_forward_partials`` on the card, its plain
     version on the CPU."""
-    global PARTIAL_LAUNCHES
-    device = _check(a_raw, b, mask, weight_mask)
-    if device.type != "cuda":
+    if _check(a_raw, b, mask, weight_mask).type != "cuda":
         return pool_forward_partials_reference(a_raw, b, mask, weight_mask)
+    return _launch_partials(a_raw, b, mask, weight_mask)
+
+
+def _launch_partials(a_raw, b, mask, weight_mask):
+    global PARTIAL_LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
-    out = _empty(device, k, 1 + o)
-    scratch = _empty(device, k, nblk, 1 + o) if nblk > 1 else None
+    shape = _fwd_shape(a_raw, b)
+    dev = a_raw.device
+    out = _empty(dev, shape[1], 1 + shape[2])
     _call("gated_pool_forward_partials", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), out.data_ptr(),
-          _ptr(scratch), t, k, o, tiles, nblk, device=device)
+          _ptr(_rows(dev, shape)), *shape, device=dev)
     PARTIAL_LAUNCHES += 1
     return out
 
@@ -444,20 +488,26 @@ def pool_forward_finish(a_raw, b, mask, weight_mask, totals):
     """``(M [K, O], A1^T [K, T], wROIs [K, T])`` of a shard from the
     all-reduced ``totals`` [K, 1+O]: ``gated_pool_forward_finish`` on the
     card, its plain version on the CPU."""
-    global FINISH_LAUNCHES
-    device = _check(a_raw, b, mask, weight_mask)
-    if device.type != "cuda":
+    if _check(a_raw, b, mask, weight_mask).type != "cuda":
         return pool_forward_finish_reference(a_raw, b, mask, weight_mask,
                                              totals)
+    return _launch_finish(a_raw, b, mask, weight_mask, totals)
+
+
+def _launch_finish(a_raw, b, mask, weight_mask, totals):
+    global FINISH_LAUNCHES
     _require_f32_contiguous(a_raw=a_raw, b=b, mask=mask,
                             weight_mask=weight_mask, totals=totals)
-    t, k, o, tiles, nblk = _shape(a_raw, b)
-    m, a1t, wrois = _empty(device, k, o), _empty(device, k, t), \
-        _empty(device, k, t)
+    t, k = a_raw.shape
+    o = b.shape[1]
+    _limits(t, k, o)
+    dev = a_raw.device
+    m, a1t, wrois = _empty(dev, k, o), _empty(dev, k, t), _empty(dev, k, t)
+    # elementwise, one tile a thread: no sum over T, no scratch
     _call("gated_pool_forward_finish", a_raw.data_ptr(), b.data_ptr(),
           mask.data_ptr(), weight_mask.data_ptr(), totals.data_ptr(),
-          m.data_ptr(), a1t.data_ptr(), wrois.data_ptr(), t, k, o, tiles,
-          nblk, device=device)
+          m.data_ptr(), a1t.data_ptr(), wrois.data_ptr(), t, k, o,
+          FWD_FINISH_TILES, -(-t // FWD_FINISH_TILES), device=dev)
     FINISH_LAUNCHES += 1
     return m, a1t, wrois
 

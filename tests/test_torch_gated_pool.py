@@ -233,27 +233,65 @@ def test_cuda_request_without_card_raises(monkeypatch):
         _build.build("gated_pool")
 
 
-@pytest.mark.parametrize("t", [1, gated_pool.POOL_RANGE - 1,
-                               gated_pool.POOL_RANGE,
-                               gated_pool.POOL_RANGE + 1,
-                               2 * gated_pool.POOL_RANGE + 1, 50000])
+_FWD_EDGES = sorted({e + d for e in gated_pool.FWD_EDGES for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("t", sorted({1, 2047, 2048, 2049, 4097, 50000}
+                                     | set(_FWD_EDGES)))
 def test_pool_partition_covers_every_tile_once(t):
-    """The kernel's ranges cover [0, T) exactly once, in order, none empty;
-    one range (one launch, no scratch) exactly when T fits one."""
-    nblk, tiles = gated_pool.pool_partition(t)
-    assert tiles == gated_pool.POOL_RANGE
+    """The forward's blocks cover [0, T) exactly once, in order, none
+    empty; each is one launch the kernel takes: on path (i) a cluster size
+    it launches (portable up to 8, or the non-portable 16), on path (ii) a
+    cooperative grid of at most FWD_MAX_GRID blocks, one round of
+    FWD_GRID_TILES tiles a thread up to FWD_MAX_GRID * FWD_GRID_TILES
+    tiles; the path changes only at the last row of FWD_CLUSTERS."""
+    path, blocks, tiles = gated_pool.pool_fwd_partition(t)
     covered = np.zeros(t, np.int64)
-    for j in range(nblk):
-        lo, hi = j * tiles, min(t, (j + 1) * tiles)
+    ends = []
+    for r in range(blocks):
+        lo, hi = r * tiles, min(t, (r + 1) * tiles)
         assert lo < hi
         covered[lo:hi] += 1
+        ends.append((lo, hi))
     assert np.all(covered == 1)
-    assert (nblk == 1) == (t <= gated_pool.POOL_RANGE)
+    assert ends == sorted(ends) and ends[-1][1] == t
+    top = gated_pool.FWD_CLUSTERS[-1][0]
+    assert path == ("cluster" if t <= top else "grid")
+    if path == "cluster":
+        assert blocks in (1, 2, 4, 8, 16)
+        assert blocks == next(c for e, c in gated_pool.FWD_CLUSTERS
+                              if t <= e)
+    else:
+        assert 1 < blocks <= gated_pool.FWD_MAX_GRID
+        cap = gated_pool.FWD_MAX_GRID * gated_pool.FWD_GRID_TILES
+        assert (tiles <= gated_pool.FWD_GRID_TILES) == (t <= cap)
 
 
 def test_pool_partition_refuses_an_empty_bag():
-    with pytest.raises(ValueError):
-        gated_pool.pool_partition(0)
+    for t in (0, -3):
+        with pytest.raises(ValueError):
+            gated_pool.pool_fwd_partition(t)
+
+
+def test_pool_fwd_partition_is_monotone():
+    """As T grows the forward's blocks never shrink, path (ii) never gives
+    way to path (i), and the cut changes its path, cluster size or rounds a
+    thread exactly at FWD_EDGES (the crossovers chip_smoke.py checks)."""
+    cap = gated_pool.FWD_MAX_GRID * gated_pool.FWD_GRID_TILES
+    ts = sorted(set(range(1, 9000)) | set(range(cap - 600, cap + 600))
+                | {50000})
+    cuts = [gated_pool.pool_fwd_partition(t) for t in ts]
+    assert all(a[1] <= b[1] for a, b in zip(cuts, cuts[1:]))
+    paths = [c[0] for c in cuts]
+    assert paths == sorted(paths)  # "cluster" < "grid"
+
+    def kind(t):
+        path, blocks, tiles = gated_pool.pool_fwd_partition(t)
+        return (path, blocks if path == "cluster"
+                else -(-tiles // gated_pool.FWD_GRID_TILES))
+
+    edges = [t for t in ts if t + 1 in ts and kind(t) != kind(t + 1)]
+    assert edges == list(gated_pool.FWD_EDGES)
 
 
 @pytest.mark.parametrize("t,k,o", [(1, 3, 1), (64, 3, 1), (7, 5, 2)])
@@ -401,12 +439,17 @@ def _c_entries():
 
 
 def test_entries_match_the_c_signatures():
-    """ENTRIES' pointer counts (what ctypes passes before the five ints
-    and the stream) equal the C source's signatures, entry by entry."""
+    """ENTRIES' pointer and int counts (what ctypes passes before the
+    stream) equal the C source's signatures, entry by entry: five ints
+    (T, K, O, tiles, blocks), and the forward's one-call and partials
+    entries the path as a sixth."""
     c = _c_entries()
     assert set(c) == set(gated_pool.ENTRIES)
-    for name, n_ptr in gated_pool.ENTRIES.items():
-        assert c[name] == (n_ptr, 5), name
+    for name, counts in gated_pool.ENTRIES.items():
+        assert c[name] == counts, name
+        assert counts[1] == (6 if name in ("gated_pool_forward",
+                                           "gated_pool_forward_partials")
+                             else 5), name
 
 
 _CALLS = {
@@ -454,8 +497,8 @@ def test_backward_launch_is_one_call_with_no_scratch(entry, only_dm, t,
     assert len(calls) == 1
     name, args, device = calls[0]
     assert name == entry and device == a_raw.device
-    n_ptr = gated_pool.ENTRIES[entry]
-    assert len(args) == n_ptr + 5
+    n_ptr, n_int = gated_pool.ENTRIES[entry]
+    assert n_int == 5 and len(args) == n_ptr + n_int
     ptrs, ints = args[:n_ptr], args[n_ptr:]
     assert ints == (t, k, o, *reversed(gated_pool.pool_bwd_partition(t)))
     n_in = len(inputs)
@@ -483,3 +526,94 @@ def test_split_backward_on_the_cpu_takes_the_plain_version(monkeypatch):
     want = gated_pool.pool_backward_finish_reference(*args, stats, dm)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# --------------------------------------- the forward's one launch an entry
+
+_FWD_CALLS = {
+    "gated_pool_forward": ("_launch", "LAUNCHES"),
+    "gated_pool_forward_partials": ("_launch_partials", "PARTIAL_LAUNCHES"),
+    "gated_pool_forward_finish": ("_launch_finish", "FINISH_LAUNCHES"),
+}
+
+
+@pytest.mark.parametrize("t,k,o", [(40, 3, 1), (2000, 3, 1), (2049, 3, 1),
+                                   (50000, 3, 1), (7, 5, 2), (9000, 3, 9)])
+@pytest.mark.parametrize("entry", sorted(_FWD_CALLS))
+def test_forward_launch_is_one_call(entry, t, k, o, monkeypatch):
+    """The host side of each forward entry, with ``_call`` recorded in
+    place of the library (CPU tensors, no card): one call of its entry,
+    its ENTRIES pointers then its ints (the one-call and partials entries:
+    T, K, O and pool_fwd_partition's tiles, blocks and path; the finish: T,
+    K, O, one tile a thread of FWD_FINISH_TILES-thread blocks), the rows
+    scratch [blocks, K, 1+O] exactly on path (ii) and a null pointer on
+    path (i), no scratch for the finish, the entry's counter up by one."""
+    a_raw, b, mask, wm = (torch.from_numpy(x) for x in _inputs(t, k, o))
+    totals = torch.rand((k, 1 + o))
+    calls, made = [], []
+    monkeypatch.setattr(gated_pool, "_call",
+                        lambda name, *args, device: calls.append(
+                            (name, args, device)))
+    real_empty = gated_pool._empty
+
+    def empty(device, *shape):
+        made.append(real_empty(device, *shape))
+        return made[-1]
+
+    monkeypatch.setattr(gated_pool, "_empty", empty)
+    launch, counter = _FWD_CALLS[entry]
+    before = getattr(gated_pool, counter)
+    if entry == "gated_pool_forward_finish":
+        outs = getattr(gated_pool, launch)(a_raw, b, mask, wm, totals)
+        inputs = [a_raw, b, mask, wm, totals]
+    else:
+        outs = getattr(gated_pool, launch)(a_raw, b, mask, wm)
+        inputs = [a_raw, b, mask, wm]
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert getattr(gated_pool, counter) == before + 1
+    assert len(calls) == 1
+    name, args, device = calls[0]
+    assert name == entry and device == a_raw.device
+    n_ptr, n_int = gated_pool.ENTRIES[entry]
+    assert len(args) == n_ptr + n_int
+    ptrs, ints = args[:n_ptr], args[n_ptr:]
+    assert list(ptrs[:len(inputs)]) == [x.data_ptr() for x in inputs]
+    out_ptrs = list(ptrs[len(inputs):])
+    assert out_ptrs[:len(outs)] == [x.data_ptr() for x in outs]
+    want = ([(k, o), (k, t), (k, t)] if entry != "gated_pool_forward_partials"
+            else [(k, 1 + o)])
+    assert [tuple(x.shape) for x in outs] == want
+    if entry == "gated_pool_forward_finish":
+        tiles = gated_pool.FWD_FINISH_TILES
+        assert ints == (t, k, o, tiles, -(-t // tiles))
+        assert len(out_ptrs) == len(outs)  # no scratch
+        return
+    path, blocks, tiles = gated_pool.pool_fwd_partition(t)
+    assert ints == (t, k, o, tiles, blocks, int(path == "grid"))
+    (rows,) = out_ptrs[len(outs):]
+    scratch = [x for x in made if all(x is not y for y in outs)]
+    if path == "cluster":
+        assert rows is None and not scratch
+    else:
+        assert [tuple(x.shape) for x in scratch] == [(blocks, k, 1 + o)]
+        assert rows == scratch[0].data_ptr()
+
+
+def test_split_forward_on_the_cpu_takes_the_plain_version(monkeypatch):
+    """A CPU tensor never reaches a launch: the split forward's wrappers
+    take their plain versions and call no entry, and one shard gives the
+    one-call plain outputs."""
+    monkeypatch.setattr(gated_pool, "_call", None)  # a call would raise
+    args = [torch.from_numpy(x) for x in _inputs(20, 3, 1)]
+    before = (gated_pool.PARTIAL_LAUNCHES, gated_pool.FINISH_LAUNCHES)
+    totals = gated_pool.pool_forward_partials(*args)
+    torch.testing.assert_close(
+        totals, gated_pool.pool_forward_partials_reference(*args),
+        rtol=0, atol=0)
+    got = gated_pool.pool_forward_finish(*args, totals)
+    want = gated_pool.pool_forward_finish_reference(*args, totals)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _check([x.numpy() for x in got],
+           gated_pool.gated_attention_pool_reference(*args))
+    assert (gated_pool.PARTIAL_LAUNCHES, gated_pool.FINISH_LAUNCHES) == before
