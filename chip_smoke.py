@@ -75,8 +75,9 @@ process on the card, their artifacts, the pool's launches in each step
 (a sample held to the plain pool) and the live driver's checkpoint
 against the CPU. In the mesh phase, ``comm_audit``: every collective of
 the world of one's window step recorded (``tools/torch_comm_audit.py``)
-and held to the port's pins with its host time, and the audit's six
-families on two gloo ranks on the card held to the pins the CPU test
+and held to the port's pins (no collective: a group of one rank issues
+none), its call time printed beside run F3's (PERF.md), and the audit's
+six families on two gloo ranks on the card held to the pins the CPU test
 holds.
 ``chip_smoke.py --mesh-cards N``, on a machine with
 N cards, runs only the mesh's checks with one rank a card over NCCL,
@@ -142,9 +143,6 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     gated_pool,
     quant,
     u8_stem,
-)
-from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
-    collectives,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402
     nn as N,
@@ -2541,14 +2539,17 @@ def mesh_sharded_pool(model, mesh, seed=31):
 
 def time_all_reduce(mesh, iters=200):
     """Host time per call of one all-reduce of the pool's [K, 1+O] table
-    on the card over the tile group, synchronised."""
+    on the card over the tile group, synchronised. It calls
+    ``torch.distributed`` itself: on a group of one rank the port's own
+    sums issue nothing, and this is what each such call used to cost."""
     table = torch.ones((3, 2), device=mesh.device)
+    group = mesh.tiles_group
     for _ in range(5):
-        collectives.all_reduce_(table, mesh.tiles_group)
+        dist.all_reduce(table, group=group)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        collectives.all_reduce_(table, mesh.tiles_group)
+        dist.all_reduce(table, group=group)
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / iters
 
@@ -2618,7 +2619,7 @@ def world_one(model, one, big, store, shares, card):
         with torch_comm_audit.record_collectives() as warm:
             step_s = mesh_train_step(model, mesh, window)[2]["step_s"]
         set_pool_counts(launches["mesh_world1_train"])
-        audit_world1 = world1_audit(first, warm, cfg, step_s)
+        audit_world1 = world1_audit(first, warm, cfg, step_s, card)
         require_launched("mesh_world1_train", launches["mesh_world1_train"],
                          SPLIT_COUNTS)
         g_gap, p_gap = train_gap(world1, single)
@@ -2673,13 +2674,19 @@ def world_one(model, one, big, store, shares, card):
     return refs, launches, ar_world1, audit_world1
 
 
-def world1_audit(first, warm, cfg, step_s):
+# a world of one before its sums over one rank were skipped (run F3 in
+# PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): 28 collectives in a 2-bag
+# window step call of 64.5 ms
+F3_WINDOW_COLLECTIVES, F3_WINDOW_STEP_MS = 28, 64.5
+
+
+def world1_audit(first, warm, cfg, step_s, card):
     """The world of one's window steps as the collective audit counts them
     (``tools/torch_comm_audit``): the first and a second step's records,
     each held to the port's own pins for a window of len(MESH_BAGS) bags on
-    one rank, and the host time of their collectives (the first's holds
-    NCCL's set-up) beside the second step's own time (the step call
-    alone, :func:`mesh_train_step`'s ``step_s``)."""
+    one rank (none: a group of one rank issues nothing), and the second
+    step's call time (:func:`mesh_train_step`'s ``step_s``) beside the
+    earlier run F3's, with no bound."""
     want = torch_comm_audit.expected_window(1, 1, cfg, bags=len(MESH_BAGS))
     rows = [torch_comm_audit.summarize(
         "classifier_train_world1", records, None, "slides=1,tiles=1",
@@ -2692,10 +2699,14 @@ def world1_audit(first, warm, cfg, step_s):
                                  f"{row['call_sites']}")
     return {"collectives": rows[1]["collectives"],
             "call_sites": rows[1]["call_sites"],
-            "first_step_collectives_host_ms": rows[0]["host_ms"],
+            "collectives_count": len(warm),
+            "first_step_collectives_count": len(first),
             "collectives_host_ms": rows[1]["host_ms"],
-            "collectives_host_us_each": 1e3 * rows[1]["host_ms"] / len(warm),
-            "window_step_ms": 1e3 * step_s}
+            "window_step_ms": 1e3 * step_s,
+            "earlier_F3": {"collectives_count": F3_WINDOW_COLLECTIVES,
+                          "window_step_ms": F3_WINDOW_STEP_MS,
+                          "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
+            **card}
 
 
 def comm_audit_phase(ar_world1, ar_gloo2, audit_world1, card):

@@ -28,11 +28,14 @@ Eval runs without autograd.
 
 ``group``, the tile-axis process group of a bag whose tile axis is split
 across ranks (``parallel/mesh.py``), makes every reduction over tiles a sum
-across the group: the batch-norm statistics, the pool (its split entries,
-``gated_pool.sharded_gated_attention_pool``), ``KLD``'s and ``Aterm_mu``'s
-masked means and ``Aterm_var``'s column norms and Gram matrix. The
-per-tile outputs (``Aterm``, ``wROIs``, ``Bterm``, ``Fterm``) are then this
-rank's rows; the rest is the whole bag's, on every rank of the group.
+across the group: the bag's valid-row count (once), the batch-norm
+statistics, the pool (its split entries,
+``gated_pool.sharded_gated_attention_pool``), and in one detached sum the
+metrics' partials (``KLD``'s and ``Aterm_mu``'s masked sums,
+``Aterm_var``'s column norms and Gram matrix). A group of one rank issues
+none of these (``ops/collectives.py``). The per-tile outputs (``Aterm``,
+``wROIs``, ``Bterm``, ``Fterm``) are then this rank's rows; the rest is
+the whole bag's, on every rank of the group.
 ``group=None`` is the single-card path.
 """
 
@@ -44,7 +47,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops import gated_pool
-from ..ops.collectives import all_reduce_sum
+from ..ops.collectives import all_reduce_
 from ..ops import init as I
 from ..ops import loss as L
 from ..ops import nn as N
@@ -181,14 +184,23 @@ def subsample_index(mask, fraction, scores):
 
 
 def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None,
-                   group=None):
+                   group=None, diagnostics=True):
     """Everything after the CNN: context, gated attention, pooling, logits.
     H: [T, L] float32 features; ``keep`` [T, L] boolean applies the train
     dropout to the instance-code branch. Runs with autograd when the caller
-    has it on. With ``group``, ``H`` is this rank's rows of a bag split
-    over the group's ranks. Returns a dict of intermediates."""
+    has it on. Returns a dict of intermediates.
+
+    With ``group``, ``H`` is this rank's rows of a bag split over the
+    group's ranks: the bag's valid rows are counted once, and the metrics
+    (``Aterm_mu``, ``Aterm_var`` and the bag's ``KLD``, which the
+    single-card path computes in :func:`_bag_forward`) come from one
+    detached all-reduce after the pool (:func:`_group_diagnostics`).
+    ``diagnostics=False`` leaves the metrics out (the sharded pool's
+    outputs are the logits, ``Mterm`` and ``Aterm``)."""
+    count = None if group is None else N.tile_count(H, mask, group)
     Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
-                             model.context.bn.bias, mask=mask, group=group)
+                             model.context.bn.bias, mask=mask, group=group,
+                             count=count)
     Hm0 = N.leaky_relu(H)
     if keep is not None:
         Hm0 = N.dropout(Hm0, cfg.dropout, keep.to(Hm0.device), train=True)
@@ -208,22 +220,46 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None,
         Mterm, A_1T, wROIs = gated_pool.sharded_gated_attention_pool(
             *pool_args, group)
 
-    # Decorrelation + mean diagnostics (reference: gbm/model.py:216-219)
-    A_raw_m = A_raw * mask[:, None].to(A_raw.dtype) if mask is not None \
-        else A_raw
-    # with ``group`` the column norms, the Gram matrix and the mean are
-    # the whole bag's, each one all-reduce
-    A_2 = N.l2_normalize(A_raw_m, axis=0, group=group)            # [T, K]
-    off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype, device=A_2.device)
-    Aterm_var = (all_reduce_sum(A_2.T @ A_2, group) * off_diag).mean()
-    Aterm_mu = 0.5 * (N.masked_mean(A_raw, mask, axis=0, group=group)
-                      ** 2).sum()
+    out = {"Aterm": A_1T, "wROIs": wROIs, "Bterm": Bterm, "Mterm": Mterm}
+    if diagnostics and group is None:
+        # Decorrelation + mean diagnostics (reference: gbm/model.py:216-219)
+        A_raw_m = A_raw * mask[:, None].to(A_raw.dtype) if mask is not None \
+            else A_raw
+        A_2 = N.l2_normalize(A_raw_m, axis=0)                      # [T, K]
+        off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype, device=A_2.device)
+        out["Aterm_mu"] = 0.5 * (N.masked_mean(A_raw, mask, axis=0)
+                                 ** 2).sum()
+        out["Aterm_var"] = ((A_2.T @ A_2) * off_diag).mean()
+    elif diagnostics:
+        out.update(_group_diagnostics(H, A_raw, mask, count, group, cfg.K))
+    out["logits"] = Mterm.reshape(1, cfg.K * cfg.O)                # [1, K]
+    return out
 
-    logits = Mterm.reshape(1, cfg.K * cfg.O)                       # [1, K]
-    return {
-        "Aterm": A_1T, "wROIs": wROIs, "Bterm": Bterm, "Mterm": Mterm,
-        "Aterm_mu": Aterm_mu, "Aterm_var": Aterm_var, "logits": logits,
-    }
+
+def _group_diagnostics(H, A_raw, mask, count, group, K):
+    """``KLD``, ``Aterm_mu`` and ``Aterm_var`` of a bag whose rows ``H``,
+    ``A_raw`` [t, K] and ``mask`` [t] are split over ``group``, the bag
+    holding ``count`` valid rows. This rank's partial sums go out in one
+    all-reduce of ``1 + 2K + K^2`` floats: KLD's masked sum, Aterm_mu's
+    masked column sums, the column squared sums and the raw Gram matrix
+    ``A_raw_m^T A_raw_m``. The normalised Gram matrix is then
+    ``D^-1 G D^-1``, ``D`` the column norms clamped at ``l2_normalize``'s
+    eps. The JAX package's step stops the gradient of every one of these,
+    so the sums carry none."""
+    with torch.no_grad():
+        m = (torch.ones_like(H[:, 0]) if mask is None
+             else mask.to(H.dtype))
+        A = A_raw * m[:, None]                                     # A_raw_m
+        sums = all_reduce_(torch.cat([
+            ((H ** 2).mean(dim=1) * m).sum().reshape(1), A.sum(dim=0),
+            (A * A).sum(dim=0), (A.T @ A).reshape(-1)]), group)
+        kld, col, sq, gram = torch.split(sums, [1, K, K, K * K])
+        d = 1.0 / torch.clamp_min(torch.sqrt(sq), 1e-12)
+        A_2tA_2 = d[:, None] * gram.reshape(K, K) * d[None, :]
+        off_diag = 1.0 - torch.eye(K, dtype=A.dtype, device=A.device)
+        return {"Aterm_mu": 0.5 * ((col / count) ** 2).sum(),
+                "Aterm_var": (A_2tA_2 * off_diag).mean(),
+                "KLD": 0.5 * (kld / count).reshape(())}
 
 
 def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
@@ -282,10 +318,9 @@ def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
         H = resnet.apply_resnet26(model.cnn, tiles.detach(),
                                   compute_dtype=compute_dtype, stem=cfg.stem,
                                   remat=remat).float()            # [T, L]
-    KLD = 0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0,
-                              group=group)
-
     pooled = attention_pool(model, H, cfg, mask=mask, keep=keep, group=group)
+    KLD = (0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
+           if group is None else pooled["KLD"])
     logits = pooled["logits"]
     y_pred = torch.softmax(logits, dim=1)
     y_pred_hat = torch.argmax(y_pred)

@@ -48,7 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.collectives import all_reduce_sum
+from ..ops.collectives import all_reduce_sum, group_size
 from ..ops.nn import leaky_relu
 
 # channel schedule for blocks at 4,8,16,32,64,128,256,512,1024 px
@@ -561,9 +561,7 @@ def minibatch_stddev(x, eps=1e-8, group=None):
         mu = x.mean(dim=0)
         var = ((x - mu) ** 2).mean(dim=0)
     else:
-        import torch.distributed as dist
-
-        n = x.shape[0] * dist.get_world_size(group)
+        n = x.shape[0] * group_size(group)
         mu = all_reduce_sum(x.sum(dim=0), group) / n
         var = all_reduce_sum(((x - mu) ** 2).sum(dim=0), group) / n
     mean_std = torch.sqrt(var + eps).mean()
@@ -629,6 +627,38 @@ def apply_discriminator(disc: Discriminator, x, *, step=0, alpha=-1.0,
     # the reference computes self.do(out) here and discards the result
     # (model.py:578): no dropout applies to the linear
     return disc.linear(out)
+
+
+def _parameters_of(modules):
+    return [p for m in modules for p in m.parameters()]
+
+
+def generator_live_parameters(gen: StyledGenerator, step: int, alpha):
+    """The parameters of ``gen`` that a pass at ``step`` and ``alpha``
+    reaches (:func:`apply_styled_generator`): the style MLP, blocks
+    0..step, ``to_rgb[step]`` and, while it fades in, ``to_rgb[step - 1]``;
+    in the order of ``gen.parameters()``. A function of the step and
+    ``alpha`` alone, so every rank of a data mesh finds the same set."""
+    g = gen.generator
+    modules = [gen.style, *g.progression[:step + 1], g.to_rgb[step]]
+    if step > 0 and _fade(alpha) < 1.0:
+        modules.append(g.to_rgb[step - 1])
+    live = {id(p) for p in _parameters_of(modules)}
+    return [p for p in gen.parameters() if id(p) in live]
+
+
+def critic_live_parameters(disc: Discriminator, step: int, alpha):
+    """The parameters of ``disc`` that a critic pass at ``step`` and
+    ``alpha`` reaches (:func:`apply_discriminator`): ``from_rgb`` of the
+    step's resolution, the blocks from there down to 4 px, the linear and,
+    while it fades in, the next ``from_rgb``; in the order of
+    ``disc.parameters()``, the same on every rank."""
+    index = disc.n_blocks - step - 1
+    modules = [disc.from_rgb[index], *disc.progression[index:], disc.linear]
+    if step > 0 and _fade(alpha) < 1.0:
+        modules.append(disc.from_rgb[index + 1])
+    live = {id(p) for p in _parameters_of(modules)}
+    return [p for p in disc.parameters() if id(p) in live]
 
 
 def init_styled_generator(generator, *, style_dim=512, n_mlp=8,

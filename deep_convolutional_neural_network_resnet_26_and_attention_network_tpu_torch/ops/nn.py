@@ -11,9 +11,9 @@ Compute dtype: conv and linear cast their operands to ``compute_dtype``
 and the output STAYS in it, with the bias added in it, as in the JAX
 package; reductions and normalisations run in float32.
 
-``masked_mean`` and ``batch_norm_tiles`` take the tile group of a bag
-whose tile axis is split across ranks (``group``, ``ops/collectives.py``):
-their sums over tiles are then the whole bag's.
+``tile_count`` and ``batch_norm_tiles`` take the tile group of a bag whose
+tile axis is split across ranks (``group``, ``ops/collectives.py``): their
+sums over tiles are then the whole bag's.
 """
 
 import torch
@@ -111,32 +111,24 @@ def linear(x, w, b=None, *, compute_dtype=None):
     return out
 
 
-def _tile_weights(x, mask, group, keepdims):
-    """The row weights ``m`` of a bag split over ``group``, shaped to
-    broadcast over ``x``, and the count of the whole bag's valid rows
-    (axis 0), at least 1."""
-    shape = [x.shape[0]] + [1] * (x.ndim - 1)
-    m = (torch.ones(shape, dtype=x.dtype, device=x.device) if mask is None
-         else mask.reshape(shape).to(x.dtype))
-    n = all_reduce_(m.sum(dim=0, keepdim=keepdims).detach(), group)
-    return m, torch.clamp_min(n, 1.0)
+def tile_count(x, mask=None, group=None):
+    """The count of the valid rows (axis 0) of ``x``, at least 1, as a
+    tensor of one element: with ``group`` the whole bag's, one all-reduce
+    of 4 bytes. A bag split over a group counts once and hands the count
+    to each of its means (:func:`batch_norm_tiles`, the bag's metrics)."""
+    n = (torch.full((1,), float(x.shape[0]), dtype=x.dtype, device=x.device)
+         if mask is None else mask.to(x.dtype).sum().reshape(1))
+    return torch.clamp_min(all_reduce_(n.detach(), group), 1.0)
 
 
-def _group_mean(x, m, n, group, keepdims):
-    """The mean over the whole bag's rows of ``x``, this rank's rows
-    weighted ``m`` of ``n`` (:func:`_tile_weights`): one all-reduce."""
-    return all_reduce_sum((x * m).sum(dim=0, keepdim=keepdims), group) / n
+def _group_mean(x, m, n, group):
+    """The mean over the whole bag's rows of ``x`` [t, C], this rank's rows
+    weighted ``m`` [t, 1] of ``n`` (:func:`tile_count`): one all-reduce."""
+    return all_reduce_sum((x * m).sum(dim=0, keepdim=True), group) / n
 
 
-def masked_mean(x, mask=None, axis=0, keepdims=False, group=None):
-    """Mean over `axis`, counting only mask>0 rows. mask broadcasts on axis.
-    With ``group`` the mean is over the whole bag's rows (axis 0 only):
-    two all-reduces, the count and the sum."""
-    if group is not None:
-        if axis != 0:
-            raise ValueError("a mean across ranks runs over the tile axis 0")
-        return _group_mean(x, *_tile_weights(x, mask, group, keepdims),
-                           group, keepdims)
+def masked_mean(x, mask=None, axis=0, keepdims=False):
+    """Mean over `axis`, counting only mask>0 rows. mask broadcasts on axis."""
     if mask is None:
         return x.mean(dim=axis, keepdim=keepdims)
     shape = [1] * x.ndim
@@ -146,16 +138,20 @@ def masked_mean(x, mask=None, axis=0, keepdims=False, group=None):
     return (x * m).sum(dim=axis, keepdim=keepdims) / n
 
 
-def batch_norm_tiles(x, gamma, beta, *, mask=None, eps=1e-5, group=None):
+def batch_norm_tiles(x, gamma, beta, *, mask=None, eps=1e-5, group=None,
+                     count=None):
     """BatchNorm1d(track_running_stats=False) over the tile axis (axis 0),
     with biased variance; ``mask`` restricts the statistics to valid
-    (un-padded) tiles. With ``group`` the statistics are the whole bag's,
-    from three all-reduces: the count, sum x * m and the centred
-    sum (x - mu)^2 * m (the JAX package's ``shard_pool.py:55-59``)."""
+    (un-padded) tiles. With ``group`` the statistics are the whole bag's:
+    the count (``count``, :func:`tile_count`, or one all-reduce when not
+    given), then two all-reduces, sum x * m and the centred sum
+    (x - mu)^2 * m (the JAX package's ``shard_pool.py:55-59``)."""
     if group is not None:
-        m, n = _tile_weights(x, mask, group, True)
-        mu = _group_mean(x, m, n, group, True)
-        var = _group_mean((x - mu) ** 2, m, n, group, True)
+        m = (torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
+             if mask is None else mask.reshape(-1, 1).to(x.dtype))
+        n = tile_count(x, mask, group) if count is None else count
+        mu = _group_mean(x, m, n, group)
+        var = _group_mean((x - mu) ** 2, m, n, group)
     else:
         mu = masked_mean(x, mask, axis=0, keepdims=True)
         var = masked_mean((x - mu) ** 2, mask, axis=0, keepdims=True)
@@ -178,14 +174,9 @@ def l1_normalize(x, axis=0, eps=1e-12):
     return x / denom
 
 
-def l2_normalize(x, axis=0, eps=1e-12, group=None):
-    """F.normalize(p=2): x / max(||x||_2, eps) along axis. With ``group``,
-    ``x`` is this rank's rows of a matrix split over the group's ranks
-    (axis 0 only), normalised by the whole matrix's column norms: one
-    all-reduce."""
-    if group is not None and axis != 0:
-        raise ValueError("a norm across ranks runs over the tile axis 0")
-    sq = all_reduce_sum((x * x).sum(dim=axis, keepdim=True), group)
+def l2_normalize(x, axis=0, eps=1e-12):
+    """F.normalize(p=2): x / max(||x||_2, eps) along axis."""
+    sq = (x * x).sum(dim=axis, keepdim=True)
     return x / torch.clamp_min(torch.sqrt(sq), eps)
 
 

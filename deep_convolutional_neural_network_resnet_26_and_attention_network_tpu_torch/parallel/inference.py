@@ -18,7 +18,8 @@ on every rank of the mesh together, each rank on its own card: the batched
 group's bags spread over the slide axis and each bag's tiles over the tile
 axis (the pool's sums become all-reduces of the tile group), and a streamed
 slide's chunks spread over every rank, whose features are gathered before
-the one pool. Every rank returns the same outputs; rank 0 writes them.
+the one pool. Every rank returns the same outputs; rank 0 writes them. A
+sum or a gather over a group of one rank is not issued.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..data.loader import pad_bag, staged_chunks
 from ..models import attention_mil as amil
 from ..models import resnet
 from ..ops import loss as L
+from ..ops.collectives import all_gather_cat, alone
 from . import mesh as M
 
 
@@ -137,12 +139,10 @@ def classify_slide_streaming(model, cfg: amil.MILConfig, builder, *,
     if mesh is None:
         H = rows[:T]
     else:
-        parts = [torch.empty_like(rows) for _ in range(mesh.size)]
-        dist.all_gather(parts, rows, group=mesh.world_group)
         # rank r's row j of chunk c is row c * step + r * share + j
-        H = torch.stack(parts).reshape(mesh.size, -1, step // mesh.size,
-                                       cfg.L).transpose(0, 1).reshape(
-                                           -1, cfg.L)[:T]
+        H = all_gather_cat(rows, mesh.world_group).reshape(
+            mesh.size, -1, step // mesh.size, cfg.L).transpose(0, 1).reshape(
+                -1, cfg.L)[:T]
     probs, outs = _pool_outputs(model, H, cfg)
     return probs.ravel(), outs, coords
 
@@ -252,17 +252,17 @@ def make_batched_infer(cfg: amil.MILConfig, *, mesh=None,
                            masks):
             out = _pool_outputs(model, h, cfg, mask=m,
                                 group=mesh.tiles_group)[1]
-            shards = [torch.empty((cfg.K, h.shape[0]), device=mesh.device)
-                      for _ in range(t)]
-            dist.all_gather(shards, torch.as_tensor(out["Aterm"]).to(
-                mesh.device), group=mesh.tiles_group)
-            out["Aterm"] = torch.cat(shards, dim=1)[:, :sizes[b]].cpu().numpy()
+            out["Aterm"] = all_gather_cat(
+                torch.as_tensor(out["Aterm"]).to(mesh.device),
+                mesh.tiles_group, dim=1)[:, :sizes[b]].cpu().numpy()
             if mesh.tile == 0:
                 rows[b] = {k: out[k] for k in ("y_pred", "y_pred_hat",
                                                "Mterm", "Aterm_var",
                                                "Aterm")}
-        everyone = [None] * mesh.size
-        dist.all_gather_object(everyone, rows, group=mesh.world_group)
+        everyone = [rows]
+        if not alone(mesh.world_group):
+            everyone = [None] * mesh.size
+            dist.all_gather_object(everyone, rows, group=mesh.world_group)
         merged = {b: r for part in everyone for b, r in part.items()}
         return stack([merged[b] for b in range(n_real)])
 

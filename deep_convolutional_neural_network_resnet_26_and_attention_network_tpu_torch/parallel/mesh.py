@@ -45,6 +45,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as tmp
 
+from ..ops.collectives import alone
+
 SLIDES_AXIS = "slides"
 TILES_AXIS = "tiles"
 # a rank that waits this long in a collective raises instead of hanging
@@ -219,7 +221,8 @@ def run_together(step, mesh: Mesh, *, what: str, agree_on=None):
     such as a slide's tile count) differ, every rank raises (this rank's
     own error, else a RuntimeError naming ``what``). Wrap a step that runs
     no collective, ahead of the first collective after it, so that no rank
-    waits in a collective that another rank has left."""
+    waits in a collective that another rank has left. A world of one rank
+    exchanges no flags."""
     err, out, v = None, None, 0
     try:
         out = step()
@@ -228,7 +231,8 @@ def run_together(step, mesh: Mesh, *, what: str, agree_on=None):
         err = e
     flags = torch.tensor([0.0 if err is None else 1.0, v, -v],
                          dtype=torch.float64, device=mesh.device)
-    dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=mesh.world_group)
+    if not alone(mesh.world_group):
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=mesh.world_group)
     failed, hi, lo = flags.tolist()
     if err is not None:
         raise err

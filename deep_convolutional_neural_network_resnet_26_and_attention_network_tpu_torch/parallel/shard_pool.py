@@ -11,15 +11,20 @@ becomes an all-reduce over the rank's tile group:
     (one all-reduce of the ``[K, 1+O]`` table between the pool kernel's
     partials and finish entries, ``ops/gated_pool.py``).
 
+These are the JAX function's four all-reduces (``4 (1 + 2L + K + K O)``
+bytes); the pool computes no metric, as the JAX function computes none,
+and the all-gather of ``Aterm`` stands for its sharded ``out_specs``. A
+tile group of one rank issues nothing (``ops/collectives.py``).
+
 MIL attention pooling is a linear reduction over tiles, so this is exact
 up to the order of the sums. Eval only, on the reference's eval path
 (gbm/model.py:89-264).
 """
 
 import torch
-import torch.distributed as dist
 
 from ..models import attention_mil as amil
+from ..ops.collectives import all_gather_cat
 from . import mesh as M
 
 
@@ -36,12 +41,10 @@ def make_sharded_pool(cfg: amil.MILConfig, mesh: M.Mesh):
         if mask is None:
             mask = torch.ones(H.shape[0], dtype=torch.float32,
                               device=H.device)
-        out = amil.attention_pool(model, H, cfg, mask=mask, group=group)
-        shards = [torch.empty_like(out["Aterm"])
-                  for _ in range(mesh.shape[M.TILES_AXIS])]
-        dist.all_gather(shards, out["Aterm"].contiguous(), group=group)
+        out = amil.attention_pool(model, H, cfg, mask=mask, group=group,
+                                  diagnostics=False)
         return {"logits": out["logits"], "Mterm": out["Mterm"],
-                "Aterm": torch.cat(shards, dim=1)}
+                "Aterm": all_gather_cat(out["Aterm"], group, dim=1)}
 
     return pool
 

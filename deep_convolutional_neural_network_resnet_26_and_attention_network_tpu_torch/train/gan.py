@@ -25,7 +25,8 @@ each) and averages them, as the JAX package's scan does; the minibatch
 stddev sees the microbatch. ``--mesh N`` trains over N ranks
 (``parallel/mesh.data_mesh``): every rank loads the whole batch and
 draws the whole batch's noise, keeps its rows, and the minibatch stddev,
-the batch means and the gradients are sums over the ranks, so the step is
+the batch means and the gradients of the layers the step runs are sums
+over the ranks (one all-reduce, after the accumulation), so the step is
 the single-card step up to the order of the sums. ``--compute_dtype
 bf16`` runs the G/D forward and backward under ``torch.autocast``
 (convolutions and matmuls in bf16); the master weights, Adam, the loss
@@ -244,13 +245,18 @@ def g_loss(gen, disc, zs, sel, alpha, draws, *, step, loss_kind="wgan-gp",
     return (-predict).sum() / n
 
 
-def _sync_grads(params, mesh):
-    """Sum every gradient over the mesh's ranks in one all-reduce."""
-    grads = []
+def _sync_grads(params, live, mesh):
+    """Sum the gradients of the ``live`` parameters (those this step's
+    backward reached, found from the step and alpha, the same on every
+    rank: ``stylegan.generator_live_parameters`` /
+    ``critic_live_parameters``) over the mesh's ranks in one all-reduce,
+    as XLA syncs only the live layers. Every other parameter of ``params``
+    gets a zero gradient, which is what the sum of the ranks' zeros would
+    be, so Adam steps the whole tree as optax does."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
+    grads = [p.grad for p in live]
     flat = torch.cat([g.reshape(-1) for g in grads])
     all_reduce_(flat, mesh.group)
     start = 0
@@ -295,7 +301,8 @@ def make_d_step(step: int, *, loss_kind: str = "wgan-gp", compute_dtype=None,
             aux = torch.stack([aux["disc_loss"], aux["grad_penalty"]])
             aux_sum = aux if aux_sum is None else aux_sum + aux
         if mesh is not None:
-            _sync_grads(params, mesh)
+            _sync_grads(params, sg.critic_live_parameters(disc, step, alpha),
+                        mesh)
             all_reduce_(aux_sum, group)
         if grad_accum > 1:
             _scale_grads(params, 1.0 / grad_accum)
@@ -343,7 +350,8 @@ def make_g_step(step: int, *, loss_kind: str = "wgan-gp", compute_dtype=None,
         finally:
             disc.requires_grad_(True)
         if mesh is not None:
-            _sync_grads(params, mesh)
+            _sync_grads(params, sg.generator_live_parameters(gen, step,
+                                                             alpha), mesh)
             loss_sum = loss_sum.reshape(1)
             all_reduce_(loss_sum, group)
             loss_sum = loss_sum.reshape(())

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 import conftest  # noqa: F401
+from torch_jax_native import private_jax_native
 
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.data import (
     build_caches as jbuild_caches,
@@ -19,6 +20,15 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     build_caches,
     slide_io,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_of_its_own(tmp_path_factory):
+    """The JAX package's cache builds load its native filter from a
+    directory of this module's own (``torch_jax_native``), never the one
+    beside its source, which other pytest workers may be writing."""
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")):
+        yield
 
 
 def _slides(tmp_path, names, seed):

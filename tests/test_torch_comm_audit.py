@@ -21,32 +21,30 @@ Against the JAX tool's rows
 (``SCALING_MEASURED.json``) the port moves these extras, each named by the
 port function that issues it (``file:function`` under the package):
 
-* every training bag sums over its tile group 13 times: the forward's
-  count and sum for KLD, the batch-norm and Aterm_mu
-  (``ops/nn.py:_tile_weights``, ``ops/nn.py:_group_mean``), the pool's
-  ``[K, 1+O]`` (``ops/gated_pool.py:forward``), the column norms
-  (``ops/nn.py:l2_normalize``) and the Gram matrix
-  (``models/attention_mil.py:attention_pool``) of the decorrelation
-  diagnostic ``Aterm_var``; the backward's two batch-norm cotangents
-  (``ops/collectives.py:backward``) and the pool's ``[K, 2]``
-  (``ops/gated_pool.py:backward``). XLA combines its own into the
-  gradient's all-reduce. On a slides-only mesh the tile group is one rank
-  and the 13 calls move nothing between ranks;
-* the sharded pool, beyond JAX's four statistics (668 bytes at L = 80,
-  K = 3, O = 1): Aterm_mu's count and sum, the column norms and the Gram
-  matrix (the diagnostics ``Aterm_mu`` / ``Aterm_var``, which
-  ``attention_pool`` computes on every path), and the all-gather of
-  ``Aterm`` [K, T] (``parallel/shard_pool.py:pool``), which stands for
-  the JAX function's sharded ``out_specs``;
+* every training bag sums over a tile group of more than one rank 8
+  times: in the forward the bag's count (``ops/nn.py:tile_count``), the
+  batch-norm's mean and variance (``ops/nn.py:_group_mean``), the pool's
+  ``[K, 1+O]`` (``ops/gated_pool.py:forward``) and one detached sum of
+  the metrics' partials, ``4 (1 + 2K + K^2)`` bytes
+  (``models/attention_mil.py:_group_diagnostics``: KLD, Aterm_mu, the
+  column norms and the Gram matrix of ``Aterm_var``); in the backward the
+  two batch-norm cotangents (``ops/collectives.py:backward``) and the
+  pool's ``[K, 2]`` (``ops/gated_pool.py:backward``). Seven of them feed
+  the loss; XLA combines its own into the gradient's all-reduce. A tile
+  group of one rank (a slides-only mesh, a world of one) issues none;
+* the sharded pool issues JAX's four statistics (668 bytes at L = 80,
+  K = 3, O = 1) and the all-gather of ``Aterm`` [K, T]
+  (``parallel/shard_pool.py:pool``), which stands for the JAX function's
+  sharded ``out_specs``;
 * a streamed slide: nothing inside the chunk loop (JAX's extract program
   is collective-free too), then once a slide ``run_together``'s failure
   flags (``parallel/mesh.py:run_together``) and the features' all-gather
   (``parallel/inference.py:classify_slide_streaming``);
-* the StyleGAN steps: one flat all-reduce of every gradient
-  (``train/gan.py:_sync_grads``; the layers a step does not run add
-  zeros, where XLA syncs only the live ones), one of the losses, and the
-  minibatch stddev's mean and variance in every critic pass, with their
-  cotangents (``models/stylegan.py:minibatch_stddev``,
+* the StyleGAN steps: one flat all-reduce of the gradients of the layers
+  the step runs (``train/gan.py:_sync_grads``; the live set follows from
+  the step and alpha, as XLA syncs only the live layers), one of the
+  losses, and the minibatch stddev's mean and variance in every critic
+  pass, with their cotangents (``models/stylegan.py:minibatch_stddev``,
   ``ops/collectives.py:backward``).
 """
 
@@ -138,11 +136,8 @@ def test_dp_window_syncs_one_param_tree(rows, jax_trees):
     assert row["parts"]["rows"] == _ar(1, 5 * (6 + 3 + 1) * 4)
     # the JAX test's bound, each extra named: the tree, then at most 10 %
     assert tree <= row["payload_bytes_total"] <= 1.1 * tree
-    # rank 0's tile group is itself: its tables move nothing between ranks
-    for site, ops in row["call_sites"].items():
-        if site not in ("parallel/steps.py:_all_reduce_flat",
-                        "parallel/steps.py:step"):
-            assert ops["all_reduce"]["group_sizes"] == [1], site
+    # rank 0's tile group is itself: it issues no tile-group sum
+    assert row["parts"]["tile_tables"] == {}
 
 
 def test_2d_window_syncs_one_tree_and_its_tile_tables(rows, jax_trees):
@@ -150,43 +145,69 @@ def test_2d_window_syncs_one_tree_and_its_tile_tables(rows, jax_trees):
     assert row["mesh"] == "slides=2,tiles=2"
     assert row["parts"]["gradient"] == _ar(1, jax_trees["mil"])
     assert row["parts"]["rows"] == _ar(1, 200)
-    # rank 0 runs 3 bags, 13 sums over its two tile ranks each
-    assert row["parts"]["tile_tables"]["all_reduce"]["count"] == 39
+    # rank 0 runs 3 bags, 8 sums over its two tile ranks each: 7 that
+    # feed the loss and 1 of the metrics' partials, 4 (1 + 2K + K^2) B
+    assert row["parts"]["tile_tables"]["all_reduce"]["count"] == 24
+    cfg = amil.MILConfig(**A.TEST_CFG)
+    assert A.metric_sums_bytes(cfg) == 64
+    assert row["call_sites"]["models/attention_mil.py:_group_diagnostics"] \
+        == {"all_reduce": {"count": 3, "payload_bytes": 3 * 64,
+                           "group_sizes": [2]}}
     assert row["payload_bytes_total"] <= 1.1 * jax_trees["mil"]
 
 
+def test_slides_only_mesh_makes_no_tile_group_collective(rows):
+    """On a slides-only mesh every collective of the window step spans the
+    world (the gradient and the metric rows); the pins of such a mesh
+    hold no tile-group site at any size, and a world of one holds none at
+    all."""
+    row = rows["classifier_train_dp"]
+    assert row["mesh"] == f"slides={N},tiles=1"
+    assert all(v["group_sizes"] == [N] for ops in row["call_sites"].values()
+               for v in ops.values())
+    cfg = amil.MILConfig(**A.TEST_CFG)
+    for n in (2, 4, 8):
+        want = A.expected_window(n, n, cfg)
+        assert want["parts"]["tile_tables"] == {}
+        assert set(want["call_sites"]) == {
+            "parallel/steps.py:_all_reduce_flat", "parallel/steps.py:step"}
+    assert A.expected_window(1, 1, cfg)["collectives"] == {}
+
+
 def test_sharded_pool_moves_jax_statistics_plus_named_extras(rows):
-    """JAX's four statistics exactly (count, mean, var, the pool's table),
-    then the port's extras: Aterm_mu's count (4 B) and sum (12 B), the
-    column norms (12 B) and the Gram matrix (36 B) of the diagnostics,
-    and the Aterm [3, 128] all-gather (1536 B) for the sharded output."""
+    """JAX's four statistics exactly (count, mean, var, the pool's table)
+    and no metric, then the port's one extra: the Aterm [3, 128]
+    all-gather (1536 B) for the sharded output."""
     row = _pinned(rows, "explicit_psum_pool")
     cfg = amil.MILConfig(**A.TEST_CFG)
     assert A.pool_statistics_bytes(cfg) == 668
     assert row["jax"]["collectives"] == {
         "all-reduce": {"count": 4, "payload_bytes": 668}}
     assert row["parts"]["statistics"] == _ar(4, 668)
-    assert row["parts"]["diagnostics"] == {
-        **_ar(4, 4 + 12 + 12 + 36),
-        "all_gather": {"count": 1, "payload_bytes": 4 * 3 * 128}}
+    gather = {"all_gather": {"count": 1, "payload_bytes": 4 * 3 * 128}}
+    assert row["parts"]["aterm_gather"] == gather
+    assert row["collectives"] == {**_ar(4, 668), **gather}
 
 
-@pytest.mark.parametrize("workload,tree,stddev,loss", [
+@pytest.mark.parametrize("workload,tree,live,stddev,loss", [
     # the critic: 3 passes x (mean, var) forward, 10 cotangents (the
     # gradient penalty's double backward among them); 2 loss terms
-    ("gan_d_step_dp", 116772, (16, 16 * 1024), 8),
+    ("gan_d_step_dp", 116772, 45188, (16, 16 * 1024), 8),
     # the generator: one critic pass forward and backward; 1 loss
-    ("gan_g_step_dp", 9216652, (4, 4 * 1024), 4)])
+    ("gan_g_step_dp", 9216652, 8696972, (4, 4 * 1024), 4)])
 def test_gan_step_syncs_its_gradient_in_one_all_reduce(
-        rows, jax_trees, workload, tree, stddev, loss):
+        rows, jax_trees, workload, tree, live, stddev, loss):
+    """One all-reduce of the live layers' gradients (the step at 8 px,
+    alpha 1), the prediction being the JAX package's whole tree."""
     row = _pinned(rows, workload)
     assert tree == jax_trees[workload]  # the JAX package's tree
-    assert row["parts"]["gradient"] == _ar(1, tree)
+    assert A.gan_live_bytes(A.gan_width(False))[workload] == live
+    assert row["parts"]["gradient"] == _ar(1, live)
     assert row["predicted_payload_bytes"] == tree  # the whole tree
     assert row["parts"]["minibatch_stddev"] == _ar(*stddev)
     assert row["parts"]["loss"] == _ar(1, loss)
     assert row["collectives"] == _ar(1 + stddev[0] + 1,
-                                     tree + stddev[1] + loss)
+                                     live + stddev[1] + loss)
 
 
 def test_pins_are_the_tools_expected_rows(rows):
@@ -242,6 +263,65 @@ def test_full_width_prediction_is_the_jax_rows(workload, port_bytes):
     assert port_bytes() == A.jax_rows()[workload]["predicted_payload_bytes"]
 
 
+@pytest.mark.parametrize("workload,live,tree", [
+    ("gan_d_step_dp", 2827268, 6899460),
+    ("gan_g_step_dp", 12289036, 18630012)])
+def test_full_width_gan_gradient_is_the_live_tree(workload, live, tree):
+    """At full width (0.25, 8 px) the gradient all-reduce moves the live
+    layers' bytes of the tree the JAX row predicts: the generator's
+    0.66 of it, as XLA's step syncs (the JAX row's 12,315,168 B hold its
+    stddev and loss sums too)."""
+    assert A.gan_live_bytes(0.25)[workload] == live
+    jax_row = A.jax_rows()[workload]
+    assert jax_row["predicted_payload_bytes"] == tree
+    if workload == "gan_g_step_dp":
+        assert live <= jax_row["payload_bytes_total"]
+        assert round(live / tree, 2) == round(
+            jax_row["measured_over_predicted"], 2)
+
+
+def test_recorder_payload_rules():
+    """The recorder on two gloo ranks: each entry point's payload rule,
+    the group size, the call site of the port's wrappers (a
+    differentiable sum's backward is a site of its own), the entry points
+    restored, and nothing recorded outside."""
+    import pickle
+
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (
+        mesh as TM,
+    )
+
+    import torch_mesh_workers as W
+
+    out = TM.launch(W.recorder_rules, 2, devices=["cpu"] * 2)
+    objects = len(pickle.dumps({"a": 1})) + len(pickle.dumps((2, 3)))
+    # a call from outside the port is sited at the first port frame below
+    # it: the launcher's rank function
+    rank_main = "parallel/mesh.py:_rank_main"
+    for rank in out:
+        assert rank["restored"]
+        assert rank["records"] == [
+            ("all_reduce", 400, "float32", 2, rank_main),
+            ("all_reduce", 32, "bfloat16", 2, rank_main),
+            ("all_gather", 16, "uint8", 2, rank_main),  # the gathered output
+            ("broadcast", 24, "float64", 2, rank_main),
+            ("broadcast_object_list", objects, None, 2, rank_main),
+            ("all_gather_object", 2 * len(pickle.dumps(["x"])), None, 2,
+             rank_main),
+            ("barrier", 0, None, 2, rank_main),
+            # the wrappers of ops/collectives.py pass the site through,
+            # but for the differentiable sum's backward
+            ("all_reduce", 8, "float32", 2, rank_main),
+            ("all_reduce", 20, "float32", 2, rank_main),
+            ("all_reduce", 20, "float32", 2, "ops/collectives.py:backward"),
+            ("all_gather", 48, "float32", 2, rank_main)]
+        assert rank["all_reduce"] == {"count": 5, "payload_bytes": 480}
+        assert rank["objs"] == [{"a": 1}, (2, 3)]
+        np.testing.assert_array_equal(rank["grad"], np.full(5, 2.0))
+        np.testing.assert_array_equal(
+            rank["rows"], np.repeat([[0.0], [1.0]], 3 * 2).reshape(4, 3))
+
+
 @pytest.fixture()
 def world_of_one(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
@@ -252,41 +332,30 @@ def world_of_one(tmp_path):
         dist.destroy_process_group()
 
 
-def test_recorder_payload_rules(world_of_one):
-    real = {op: getattr(dist, op) for op in A.COLLECTIVES}
-    x = torch.ones(100)
+def test_a_world_of_one_issues_nothing(world_of_one):
+    """On a world of one the port's sums and gathers are their inputs and
+    issue nothing, a whole window step included (the pins of a world of
+    one: ``expected_window(1, 1)``, no collective)."""
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (
+        mesh as TM,
+        steps,
+    )
+
+    mesh = TM.make_mesh(1, devices=["cpu"])
+    cfg = amil.MILConfig(**A.TEST_CFG)
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+    opt = steps.make_optimizer(model)
+    tiles, masks, labels, gens = A._window(cfg, "cpu", 10)
+    x = torch.arange(6.0).reshape(2, 3)
     with A.record_collectives() as recs:
-        dist.all_reduce(x)
-        dist.all_reduce(torch.ones((4, 4), dtype=torch.bfloat16))
-        out = [torch.empty(8, dtype=torch.uint8)]
-        dist.all_gather(out, torch.ones(8, dtype=torch.uint8))
-        dist.broadcast(torch.ones(3, dtype=torch.float64), src=0)
-        objs = [{"a": 1}, (2, 3)]
-        dist.broadcast_object_list(objs, src=0)
-        gathered = [None]
-        dist.all_gather_object(gathered, ["x"])
-        dist.barrier()
-        collectives.all_reduce_(torch.ones(2), dist.group.WORLD)
-        y = torch.ones(5, requires_grad=True)
-        collectives.all_reduce_sum(y, dist.group.WORLD).sum().backward()
-    # every entry point is restored, and nothing records outside
-    assert all(getattr(dist, op) is f for op, f in real.items())
-    dist.all_reduce(x)
-    got = [(r["op"], r["payload_bytes"], r["dtype"], r["group_size"],
-            r["call_site"]) for r in recs]
-    import pickle
-    assert got == [
-        ("all_reduce", 400, "float32", 1, None),
-        ("all_reduce", 32, "bfloat16", 1, None),
-        ("all_gather", 8, "uint8", 1, None),  # the gathered output
-        ("broadcast", 24, "float64", 1, None),
-        ("broadcast_object_list", len(pickle.dumps({"a": 1}))
-         + len(pickle.dumps((2, 3))), None, 1, None),
-        ("all_gather_object", len(pickle.dumps(["x"])), None, 1, None),
-        ("barrier", 0, None, 1, None),
-        ("all_reduce", 8, "float32", 1, "ops/collectives.py:all_reduce_"),
-        ("all_reduce", 20, "float32", 1, "ops/collectives.py:all_reduce_"),
-        ("all_reduce", 20, "float32", 1, "ops/collectives.py:backward")]
-    assert A.tally(recs)["all_reduce"] == {"count": 5,
-                                           "payload_bytes": 480}
-    np.testing.assert_array_equal(y.grad.numpy(), np.ones(5))
+        assert collectives.all_reduce_(x.clone(), dist.group.WORLD).equal(x)
+        assert collectives.all_reduce_sum(x, dist.group.WORLD) is x
+        assert collectives.all_gather_cat(x, mesh.tiles_group, dim=1) is x
+        assert TM.run_together(lambda: 3, mesh, what="nothing") == 3
+        metrics = steps.make_train_step(cfg, mesh=mesh)(
+            model, opt, tiles[:2], masks[:2], labels[:2], 1e-3,
+            generators=gens[:2])
+    assert recs == []
+    assert A.expected_window(1, 1, cfg, bags=2)["call_sites"] == {}
+    assert np.isfinite(float(metrics["loss"]))

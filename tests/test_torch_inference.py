@@ -15,6 +15,7 @@ import torch
 import conftest  # noqa: F401
 import jax
 import jax.numpy as jnp
+from torch_jax_native import private_jax_native
 
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.data import (
     loader as jloader,
@@ -47,6 +48,15 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
 
 JCFG = jamil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1))
 TCFG = tamil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_of_its_own(tmp_path_factory):
+    """The JAX package's cache builds load its native filter from a
+    directory of this module's own (``torch_jax_native``), never the one
+    beside its source, which other pytest workers may be writing."""
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")):
+        yield
 
 
 @pytest.fixture(scope="module")

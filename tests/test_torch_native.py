@@ -3,7 +3,10 @@ JAX package's native filter, and the RoiBuilder paths that use them.
 
 All three implement one rule, so keep flags and gathered tiles are equal,
 not close. The port builds its own copy of the source into its own
-``_build/`` directory, never beside the JAX package's library."""
+``_build/`` directory, never beside the JAX package's library; the JAX
+package's library is built for this module in a directory of its own
+(``torch_jax_native``), since other pytest workers may be writing the one
+beside its source."""
 
 import os
 import subprocess
@@ -14,10 +17,8 @@ import pytest
 import torch
 
 import conftest  # noqa: F401
+from torch_jax_native import private_jax_native
 
-from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu.data import (
-    native as jnative,
-)
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (
     native as tnative,
     roibuilder as troi,
@@ -48,7 +49,17 @@ def built():
     return tnative
 
 
-def test_library_builds_into_the_ports_own_build_dir(built):
+@pytest.fixture(scope="module")
+def jnative(tmp_path_factory):
+    """The JAX package's loader with its library built in a directory of
+    this module's own, its per-process state reset while the module runs
+    and restored after."""
+    with private_jax_native(tmp_path_factory.mktemp("jax_native"),
+                            build=True) as loader:
+        yield loader
+
+
+def test_library_builds_into_the_ports_own_build_dir(built, jnative):
     lib = built._get_lib()
     path = os.path.realpath(lib._name)
     assert os.path.dirname(path) == os.path.realpath(_build.BUILD_DIR)
@@ -61,9 +72,20 @@ def test_library_builds_into_the_ports_own_build_dir(built):
         assert fn in port_src and fn in jax_src
 
 
+def test_jax_library_is_built_outside_the_jax_package(jnative, tmp_path):
+    """The comparison's JAX library lies in this module's directory; the
+    one beside the JAX package's source is neither written nor read."""
+    lib = os.path.realpath(jnative._get_lib()._name)
+    src_dir = os.path.dirname(os.path.realpath(jnative._SRC))
+    assert os.path.dirname(lib) == os.path.realpath(
+        os.environ["GBMNET_NATIVE_DIR"])
+    assert os.path.dirname(lib) != src_dir
+
+
 @pytest.mark.parametrize("roi,size,seed", [(64, 400, 0), (32, 200, 1),
                                            (50, 333, 2)])
-def test_keep_flags_and_tiles_match_torch_and_jax(built, roi, size, seed):
+def test_keep_flags_and_tiles_match_torch_and_jax(built, jnative, roi, size,
+                                                 seed):
     img = _slide(seed, size)
     raster = np.asarray(ttissue.sliding_window(img.shape, roi), np.int64)
     keep = built.tissue_mask_native(img, raster, roi)

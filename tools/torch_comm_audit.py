@@ -28,9 +28,13 @@ Usage:
     python tools/torch_comm_audit.py --devices 4 --test-width   # CPU, gloo
     python tools/torch_comm_audit.py --devices 4                # full width
     python tools/torch_comm_audit.py --devices 2 --device cuda  # NCCL cards
+    python tools/torch_comm_audit.py --devices 2 --device cuda --one-card \
+        --test-width                          # two gloo ranks on cuda:0
 
-Prints the rows as JSON; writes them to a file only with ``--out`` (never
-to ``SCALING_MEASURED.json``, the JAX tool's artifact).
+Prints the rows as JSON with the families that differ from
+:func:`expected_rows` (``pins_mismatches``; exit code 1 when any does);
+writes them to a file only with ``--out`` (never to
+``SCALING_MEASURED.json``, the JAX tool's artifact).
 """
 
 import argparse
@@ -103,6 +107,7 @@ WINDOW = 5                   # bags a window step, the reference's accum
 BAG_TILES = 40               # each bag's tiles (a 20 % subsample of 8)
 TILE_PX = 32
 GAN_STEP = 1                 # 8 px, the JAX tool's res_step
+GAN_ALPHA = 1.0              # the fade-in done: no skip branch runs
 GAN_CODE = 512
 POOL_TILES_PER_RANK = 32     # the JAX tool's T4 = 32 * n
 
@@ -331,20 +336,17 @@ def _pool_family(mesh, cfg):
     pool = shard_pool.make_sharded_pool(cfg, mesh)
     with record_collectives() as records:
         pool(model, h, m)
-    stats = _within(records, "ops/nn.py:batch_norm_tiles") + [
-        r for r in records
-        if str(r["call_site"]).startswith("ops/gated_pool.py")]
     return summarize(
         "explicit_psum_pool", records, pool_statistics_bytes(cfg),
         f"tiles={mesh.size}",
         "prediction: the JAX tool's 4*(1+2L+K+K*O) bytes (count, mean, "
-        "var, L1 denominator, pooled A^T B). 'statistics' are those; "
-        "'diagnostics' are the port's extras: attention_pool's column "
-        "norms, Gram matrix and masked mean (Aterm_var, Aterm_mu), and "
-        "make_sharded_pool's all-gather of Aterm [K, T], which stands for "
-        "the JAX function's sharded out_specs",
-        {"statistics": stats,
-         "diagnostics": [r for r in records if r not in stats]})
+        "var, L1 denominator, pooled A^T B). 'statistics' are those four "
+        "all-reduces, as the JAX function's (the pool computes no "
+        "metric); 'aterm_gather' is make_sharded_pool's all-gather of "
+        "Aterm [K, T], which stands for the JAX function's sharded "
+        "out_specs",
+        {"statistics": [r for r in records if r["op"] == "all_reduce"],
+         "aterm_gather": [r for r in records if r["op"] == "all_gather"]})
 
 
 def _gan_nets(device, width):
@@ -374,21 +376,23 @@ def _gan_families(mesh, width):
     rows = []
     for name, fn, args, net, note in (
             ("gan_d_step_dp", gan.make_d_step(GAN_STEP, mesh=dm),
-             (gen, disc, d_opt, real, zs, sel, 1.0, 1e-3, d_draws), disc,
+             (gen, disc, d_opt, real, zs, sel, GAN_ALPHA, 1e-3, d_draws), disc,
              "prediction: one f32 D parameter tree (the JAX tool's). The "
-             "port sums every D gradient in one flat all-reduce "
-             "(train/gan._sync_grads; the layers the step does not run "
-             "add zeros), the two loss terms in one more, and the "
-             "minibatch stddev's mean and variance in each of the three "
-             "critic passes, with their cotangents in the backward and "
-             "the gradient penalty's double backward"),
+             "port sums the gradients of the layers the step runs in one "
+             "flat all-reduce (train/gan._sync_grads; the live set, "
+             "stylegan.critic_live_parameters, follows from the step and "
+             "alpha), the two loss terms in one more, and the minibatch "
+             "stddev's mean and variance in each of the three critic "
+             "passes, with their cotangents in the backward and the "
+             "gradient penalty's double backward"),
             ("gan_g_step_dp", gan.make_g_step(GAN_STEP, mesh=dm),
-             (gen, disc, g_opt, ema, zs, sel, 1.0, 1e-3, g_draws), gen,
+             (gen, disc, g_opt, ema, zs, sel, GAN_ALPHA, 1e-3, g_draws), gen,
              "prediction: one f32 G parameter tree (the JAX tool's; XLA "
              "syncs only the live layers, 0.66x). The port's flat "
-             "all-reduce takes every G gradient, the layers the step does "
-             "not run as zeros; plus the loss and the critic pass's "
-             "minibatch stddev, forward and backward")):
+             "all-reduce takes the G gradients of the layers the step "
+             "runs (stylegan.generator_live_parameters), as XLA's does; "
+             "plus the loss and the critic pass's minibatch stddev, "
+             "forward and backward")):
         with record_collectives() as records:
             fn(*args)
         grads = _within(records, "train/gan.py:_sync_grads")
@@ -422,15 +426,17 @@ def _audit_rank(mesh, spec):
             "'gradient' is steps.sync_grads' one flat all-reduce, 'rows' "
             "the window's per-bag metric rows, 'tile_tables' the bag "
             "forward's and backward's sums over the tile group, which is "
-            "one rank here (the rank's bags: rank 0 runs "
-            f"{len(dp.bags(WINDOW))} of {WINDOW})"),
+            "one rank here and so issues none (rank 0 runs "
+            f"{len(dp.bags(WINDOW))} of {WINDOW} bags)"),
         _train_family(
             "classifier_train_2d", grid, cfg,
             "prediction: the same tree plus O(kB) tile-axis statistics "
-            "(the JAX tool's). 'tile_tables' per real bag: the forward's "
-            "count and sums (KLD, batch-norm, Aterm_mu), the pool's "
-            "[K, 1+O], the column norms and the Gram matrix; the "
-            "backward's batch-norm cotangents and the pool's [K, 2] "
+            "(the JAX tool's). 'tile_tables' per real bag, 8 sums: the "
+            "forward's count, batch-norm mean and variance and the "
+            "pool's [K, 1+O], and one detached sum of the metrics' "
+            "partials (KLD, Aterm_mu, the column norms and the Gram "
+            "matrix, 4*(1+2K+K^2) bytes); the backward's batch-norm "
+            "cotangents and the pool's [K, 2] "
             f"(rank 0 runs {len(grid.bags(WINDOW))} of {WINDOW} bags)"),
         _streaming_family(tiles, cfg, spec["slide"]),
         _pool_family(tiles, cfg),
@@ -468,41 +474,65 @@ def _expected(sites, parts) -> dict:
                       for k, v in parts.items()}}
 
 
+def metric_sums_bytes(cfg) -> int:
+    """The bag's one all-reduce of metric partials on a tile group of more
+    than one rank: KLD's masked sum, Aterm_mu's column sums [K], the
+    column squared sums [K] and the raw Gram matrix [K, K], f32."""
+    return 4 * (1 + 2 * cfg.K + cfg.K * cfg.K)
+
+
 def expected_window(n, slides, cfg, bags=WINDOW) -> dict:
     """A window step of ``bags`` real bags on rank 0 of a (slides, n /
-    slides) mesh: each of the rank's bags sums over its tile group, in the
-    forward, the count and the sum of KLD's, the batch-norm's and
-    Aterm_mu's masked means (its mean and variance [L], Aterm_mu's [K]),
-    the pool's [K, 1+O], the column norms [K] and the Gram matrix [K, K];
-    in the backward the batch-norm's two cotangents [L] and the pool's
-    [K, 2]; then one world all-reduce of the gradient tree and one of the
-    window's metric rows."""
+    slides) mesh. On a tile group of more than one rank each of the
+    rank's bags sums, in the forward, the bag's count, the batch-norm's
+    mean and variance [L], the pool's [K, 1+O] and, in one detached sum,
+    the metrics' partials (:func:`metric_sums_bytes`); in the backward the
+    batch-norm's two cotangents [L] and the pool's [K, 2]: 7 sums that
+    feed the loss and 1 of metrics. A tile group of one rank sums nothing.
+    Then, on a world of more than one rank, one all-reduce of the gradient
+    tree and one of the window's metric rows."""
     t = n // slides
     nb = -(-bags // slides)  # slide rank 0's share (Mesh.bags)
     L, K, O = cfg.L, cfg.K, cfg.O
     tree = tree_bytes(amil.AttentionMIL(cfg, device="meta"))
-    sites = {
-        "ops/nn.py:_tile_weights": _site("all_reduce", 3 * nb, 12 * nb, t),
-        "ops/nn.py:_group_mean": _site("all_reduce", 4 * nb,
-                                       (4 + 8 * L + 4 * K) * nb, t),
-        "ops/gated_pool.py:forward": _site("all_reduce", nb,
-                                           4 * K * (1 + O) * nb, t),
-        "ops/nn.py:l2_normalize": _site("all_reduce", nb, 4 * K * nb, t),
-        "models/attention_mil.py:attention_pool": _site(
-            "all_reduce", nb, 4 * K * K * nb, t),
-        "ops/gated_pool.py:backward": _site("all_reduce", nb, 8 * K * nb,
-                                            t),
-        "ops/collectives.py:backward": _site("all_reduce", 2 * nb,
-                                             8 * L * nb, t),
-        "parallel/steps.py:_all_reduce_flat": _site("all_reduce", 1, tree,
-                                                    n),
-        "parallel/steps.py:step": _site(
-            "all_reduce", 1, 4 * bags * (len(steps._SCALARS)
-                                           + cfg.n_classes + 1), n)}
+    sites = {}
+    if t > 1:
+        sites.update({
+            "ops/nn.py:tile_count": _site("all_reduce", nb, 4 * nb, t),
+            "ops/nn.py:_group_mean": _site("all_reduce", 2 * nb,
+                                           8 * L * nb, t),
+            "ops/gated_pool.py:forward": _site("all_reduce", nb,
+                                               4 * K * (1 + O) * nb, t),
+            "models/attention_mil.py:_group_diagnostics": _site(
+                "all_reduce", nb, metric_sums_bytes(cfg) * nb, t),
+            "ops/gated_pool.py:backward": _site("all_reduce", nb,
+                                                8 * K * nb, t),
+            "ops/collectives.py:backward": _site("all_reduce", 2 * nb,
+                                                 8 * L * nb, t)})
     world = ("parallel/steps.py:_all_reduce_flat", "parallel/steps.py:step")
+    if n > 1:
+        sites.update({
+            world[0]: _site("all_reduce", 1, tree, n),
+            world[1]: _site("all_reduce", 1,
+                            4 * bags * (len(steps._SCALARS)
+                                        + cfg.n_classes + 1), n)})
     return _expected(sites, {
         "gradient": world[:1], "rows": world[1:],
         "tile_tables": [k for k in sites if k not in world]})
+
+
+def gan_live_bytes(width) -> dict:
+    """The bytes of the StyleGAN parameters that the audit's steps reach
+    (step GAN_STEP, alpha 1), by family: what the gradient all-reduce
+    moves."""
+    gen = sg.StyledGenerator(GAN_CODE, 8, width, device="meta")
+    disc = sg.Discriminator(width, device="meta")
+    return {"gan_d_step_dp": sum(_tensor_bytes(p) for p in
+                                 sg.critic_live_parameters(disc, GAN_STEP,
+                                                           GAN_ALPHA)),
+            "gan_g_step_dp": sum(_tensor_bytes(p) for p in
+                                 sg.generator_live_parameters(gen, GAN_STEP,
+                                                              GAN_ALPHA))}
 
 
 def expected_rows(n: int, *, full_width: bool = True) -> dict:
@@ -526,45 +556,37 @@ def expected_rows(n: int, *, full_width: bool = True) -> dict:
              "all_gather", 1, gathered, n)},
         {"chunk_loop": [], "per_slide": None})
     T = POOL_TILES_PER_RANK * n
+    # JAX's four all-reduces: the count, the batch-norm's mean and
+    # variance, the pool's table; then the Aterm gather
+    pool_sums = ["ops/nn.py:tile_count", "ops/nn.py:_group_mean",
+                 "ops/gated_pool.py:forward"]
     out["explicit_psum_pool"] = _expected(
-        {"ops/nn.py:_tile_weights": _site("all_reduce", 2, 8, n),
-         "ops/nn.py:_group_mean": _site("all_reduce", 3, 8 * L + 4 * K, n),
+        {"ops/nn.py:tile_count": _site("all_reduce", 1, 4, n),
+         "ops/nn.py:_group_mean": _site("all_reduce", 2, 8 * L, n),
          "ops/gated_pool.py:forward": _site("all_reduce", 1,
                                             4 * K * (1 + O), n),
-         "ops/nn.py:l2_normalize": _site("all_reduce", 1, 4 * K, n),
-         "models/attention_mil.py:attention_pool": _site("all_reduce", 1,
-                                                         4 * K * K, n),
          "parallel/shard_pool.py:pool": _site("all_gather", 1, 4 * K * T,
                                               n)},
-        # the batch-norm's count, mean and variance and the pool's table;
-        # then Aterm_mu's count and sum, the norms, the Gram matrix and
-        # the Aterm gather
-        {"statistics": {"all_reduce": {
-            "count": 4, "payload_bytes": pool_statistics_bytes(cfg)}},
-         "diagnostics": {
-             "all_reduce": {"count": 4,
-                            "payload_bytes": 4 + 8 * K + 4 * K * K},
-             "all_gather": {"count": 1, "payload_bytes": 4 * K * T}}})
+        {"statistics": pool_sums,
+         "aterm_gather": ["parallel/shard_pool.py:pool"]})
     width = gan_width(full_width)
+    live = gan_live_bytes(width)
     # the minibatch stddev's mean and variance sums: [C, 4, 4] at the
     # critic's last block, C = its first channel count
     stddev = 4 * 16 * sg._disc_layout(width)[1][0]
     # the critic step: three passes forward, ten cotangents (the gradient
     # penalty's double backward among them), two loss terms; the
     # generator step: one pass forward and backward, one loss
-    for name, net, fwd, bwd, loss, losses in (
-            ("gan_d_step_dp", sg.Discriminator(width, device="meta"), 6, 10,
-             "train/gan.py:d_step", 2),
-            ("gan_g_step_dp", sg.StyledGenerator(GAN_CODE, 8, width,
-                                                 device="meta"), 2, 2,
-             "train/gan.py:g_step", 1)):
+    for name, fwd, bwd, loss, losses in (
+            ("gan_d_step_dp", 6, 10, "train/gan.py:d_step", 2),
+            ("gan_g_step_dp", 2, 2, "train/gan.py:g_step", 1)):
         out[name] = _expected(
             {"models/stylegan.py:minibatch_stddev": _site(
                 "all_reduce", fwd, fwd * stddev, n),
              "ops/collectives.py:backward": _site("all_reduce", bwd,
                                                   bwd * stddev, n),
-             "train/gan.py:_sync_grads": _site("all_reduce", 1,
-                                               tree_bytes(net), n),
+             "train/gan.py:_sync_grads": _site("all_reduce", 1, live[name],
+                                               n),
              loss: _site("all_reduce", 1, 4 * losses, n)},
             {"gradient": ["train/gan.py:_sync_grads"],
              "minibatch_stddev": ["models/stylegan.py:minibatch_stddev",
@@ -633,25 +655,33 @@ def main(argv=None):
                     help="ranks of the mesh")
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
                     help="gloo CPU ranks, or one card a rank over NCCL")
+    ap.add_argument("--one-card", action="store_true",
+                    help="with --device cuda: every rank on cuda:0, over "
+                         "gloo (chip_smoke.py's comm_audit phase)")
     ap.add_argument("--test-width", action="store_true",
                     help="the JAX test's widths (8, 8, 8, 8) and a 1/32 "
                          "StyleGAN")
     ap.add_argument("--out", default=None,
                     help="also write the rows to this JSON file")
     args = ap.parse_args(argv)
+    devices = (["cuda:0"] * args.devices if args.one_card
+               else M.mesh_devices(args.devices, args.device))
     rows = run_audit(args.devices, full_width=not args.test_width,
-                     devices=M.mesh_devices(args.devices, args.device))
-    artifact = {"devices": args.devices,
-                "platform": f"{args.device} ({'gloo' if args.device == 'cpu' else 'nccl'}"
+                     devices=devices)
+    bad = pins_mismatch(rows, expected_rows(args.devices,
+                                            full_width=not args.test_width))
+    artifact = {"devices": [str(d) for d in devices],
+                "platform": f"{args.device} ({M.backend_for(devices)}"
                             " ranks; counts and payloads are properties of "
                             "the program)",
-                "tool": "tools/torch_comm_audit.py", "workloads": rows}
+                "tool": "tools/torch_comm_audit.py", "workloads": rows,
+                "pins_mismatches": bad}
     text = json.dumps(artifact, indent=1)
     print(text)
     if args.out:
         with open(args.out, "w") as f:
             f.write(text + "\n")
-    return 0
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
