@@ -73,7 +73,15 @@ recorded). Then ``examples``: the JAX walkthrough's eight steps through
 the port's CLIs (``examples/torch_full_pipeline_demo.py``) in this
 process on the card, their artifacts, the pool's launches in each step
 (a sample held to the plain pool) and the live driver's checkpoint
-against the CPU. In the mesh phase, ``comm_audit``: every collective of
+against the CPU. Then ``tools``: the port's measuring tools
+(``tools/torch_*.py``), each in its own process with a time limit: the
+card's health probe, the ResNet-26 per-stage profile (every segment at
+most 1.05 of the bf16 calibration taken in its process), the training
+step's decomposition at 500 tiles, the GAN's pieces, one full-width
+1024 px d+g step pair (finite losses, its peak memory) and the serving
+sweep; their pool and stem launches join the kernels line, and every T
+they pooled must be one phase 2 held to the plain pool. In the mesh
+phase, ``comm_audit``: every collective of
 the world of one's window step recorded (``tools/torch_comm_audit.py``)
 and held to the port's pins (no collective: a group of one rank issues
 none), its call time printed beside run F3's (PERF.md), and the audit's
@@ -103,9 +111,11 @@ import csv
 import dataclasses
 import filecmp
 import functools
+import gc
 import glob
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -246,6 +256,14 @@ TRAIN_POOL_T = sorted({
 # O=9 (more columns than a pass of the kernel's sums takes), 2047-2560,
 # 4097, a 50k-tile slide, and each crossover of the forward's partition
 # of T, -1..+2)
+# the measuring tools' phase (tools_phase): torch_profile_stages --train
+# pools its bag's subsample forward and backward, torch_exp_serve's
+# slides pool whole
+TOOLS_TRAIN_BAG = 500
+TOOLS_SERVE_TILES = 64
+TOOLS_BWD_T = {max(1, int(TOOLS_TRAIN_BAG
+                          * amil.MILConfig().train_tile_fraction))}
+TOOLS_POOL_T = TOOLS_BWD_T | {TOOLS_SERVE_TILES}
 MAIN_PATH_T = sorted({tile_count(s) for s in _SPECS.values()}
                      | set(TRAIN_POOL_T) | {roibuilder.EMPTY_BAG_TILES})
 # the T at which gated_pool.pool_fwd_partition changes its path, its
@@ -257,6 +275,10 @@ POOL_SHAPES = [(t, 3, 1) for t in MAIN_PATH_T] + [
     (50000, 3, 1), (2047, 3, 1), (2049, 3, 1), (4097, 3, 1), (4097, 5, 2),
     (2000, 5, 2), (50000, 5, 2), (2000, 3, 9), (50000, 3, 9)] + [
     (t, 3, 1) for t in POOL_FWD_CROSS]
+# the tools' pooled T not listed above, appended so that every case above
+# keeps its seed (a case's seed is its index)
+POOL_SHAPES += [(t, 3, 1) for t in sorted(TOOLS_POOL_T)
+                if (t, 3, 1) not in POOL_SHAPES]
 # all-masked bags: one on each path of the forward
 POOL_MASKED_T = (2048, 50000)
 # two calls on the same inputs at this T (and at each of POOL_FWD_CROSS)
@@ -281,6 +303,8 @@ POOL_BWD_T = sorted({1, 200, 250, 500, 2047, 2048, 2049, 4097, 50000}
 POOL_BWD_SHAPES = ([(t, 3, 1) for t in POOL_BWD_T]
                    + [(7, 5, 2), (500, 5, 2), (POOL_BWD_EDGES[0] + 1, 5, 2),
                       (4097, 5, 2)])
+POOL_BWD_SHAPES += [(t, 3, 1) for t in sorted(TOOLS_BWD_T)
+                    if (t, 3, 1) not in POOL_BWD_SHAPES]
 # timed: every training bag's subsample (the kernels line: the largest) and
 # a 50k-tile bag
 POOL_BWD_TIMED_T = (40, 400, 500, 50000)
@@ -4503,6 +4527,129 @@ def examples_phase(card):
     return fwd, bwd, err
 
 
+TOOLS_TIMEOUT = 240              # seconds a tool's run may take
+TOOLS_SHARE_MAX = 1.05           # a segment above the calibration is a misreading
+# the 1024 px d+g step pair: the largest configuration the tools' sweep
+# found to fit with margin on the H100 (PERF.md §6)
+TOOLS_GAN_1024 = ("f32", 16)
+
+
+def run_tool(label, argv, card):
+    """``python tools/<argv>`` in a subprocess with a time limit; its JSON
+    lines (the last one the tool's result). A non-zero exit or a time-out
+    fails the phase."""
+    cmd = [sys.executable, os.path.join(ROOT, "tools", argv[0]), *argv[1:]]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              timeout=TOOLS_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"tools: {label} exceeded {TOOLS_TIMEOUT} s: "
+                             f"{(e.stderr or b'')[-2000:]}") from None
+    secs = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    if proc.returncode != 0 or not rows:
+        raise AssertionError(f"tools: {label} exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+    emit({"phase": f"tools_{label}", "argv": argv[1:], "seconds": secs,
+          "result": rows[-1] if len(rows) == 1 else rows, **card})
+    return rows
+
+
+def tools_phase(card):
+    """The port's measuring tools (``tools/torch_*.py``), each in a
+    subprocess at a small real size, as a user runs them: the card's
+    health probe; the ResNet-26 per-stage profile at batch 64 with the
+    cuDNN stem and with the stem kernel, whose every segment and whole
+    forward must stay at or below ``TOOLS_SHARE_MAX`` of the calibration
+    taken in the same process; the single-bag training step at 500 tiles
+    (the pool's forward and backward kernels at its subsample); the GAN's
+    piece medians at 32 px; one full-width 1024 px d+g step pair
+    (``TOOLS_GAN_1024``), whose losses must be finite and whose peak
+    memory is printed; the serving daemon over four 64-tile slides. Each
+    kernel must have launched in the tools that run it, and every T the
+    tools pooled must be one that phase 2 held to the plain pool. Returns
+    the launches by tool: ``{"fwd": ..., "bwd": ..., "stem": ...}``."""
+    gc_collect()
+    t0 = time.perf_counter()
+    health = run_tool("chip_health", ["torch_chip_health.py"], card)[-1]
+    stages = {}
+    for stem in ("cudnn", "kernel"):
+        row = run_tool(f"profile_stages_{stem}", [
+            "torch_profile_stages.py", "--batch", "64", "--iters", "3",
+            "--stem", stem, "--json"], card)[-1]
+        shares = {s["name"]: s["share_of_calibration"]
+                  for s in row["segments"]}
+        shares["full"] = row["full_share_of_calibration"]
+        if max(shares.values()) > TOOLS_SHARE_MAX:
+            raise AssertionError(f"tools: a segment at {max(shares.values())}"
+                                 f" of the calibration (stem {stem}): "
+                                 f"{shares}")
+        stages[stem] = row
+    if stages["kernel"]["stem_launches"] < 1:
+        raise AssertionError("tools: --stem kernel never launched the stem "
+                             "kernel")
+    train = run_tool("profile_train", [
+        "torch_profile_stages.py", "--train", "--tiles-per-bag",
+        str(TOOLS_TRAIN_BAG), "--iters", "2", "--json"], card)[-1]
+    run_tool("profile_gan", ["torch_profile_gan.py", "--res", "32",
+                             "--batch", "16", "--rounds", "2"], card)
+    dtype, batch = TOOLS_GAN_1024
+    gan_1024 = run_tool("exp_gan512_1024px", [
+        "torch_exp_gan512.py", "--probe", "--res", "1024", "--batch",
+        str(batch), "--dtype", dtype, "--iters", "1"], card)[-1]
+    if not (gan_1024["fit"] and math.isfinite(gan_1024["disc_loss"])
+            and math.isfinite(gan_1024["g_loss"])
+            and gan_1024["peak_mem_gb"] > 0):
+        raise AssertionError(f"tools: the 1024 px step pair failed: "
+                             f"{gan_1024}")
+    serve_rows = run_tool("exp_serve", [
+        "torch_exp_serve.py", "--slides", "4", "--tiles",
+        str(TOOLS_SERVE_TILES), "--batch", "2",
+        "--keep", os.path.join(CACHE, "tools_serve")], card)
+    pooled = [train] + serve_rows
+    fwd = {"tools_profile_train": train["pool_launches"],
+           "tools_exp_serve": sum(r["pool_launches"] for r in serve_rows)}
+    bwd = {"tools_profile_train": train["pool_bwd_launches"]}
+    stem = {"tools_profile_stages_kernel": stages["kernel"]["stem_launches"]}
+    if min(*fwd.values(), *bwd.values()) < 1:
+        raise AssertionError(f"tools: the pool's kernels never launched: "
+                             f"{fwd} {bwd}")
+    fwd_t = set().union(*(r["pool_T"] for r in pooled))
+    bwd_t = set().union(*(r["pool_bwd_T"] for r in pooled))
+    unchecked = {"forward": sorted(fwd_t - {t for t, k, o in POOL_SHAPES
+                                            if (k, o) == (3, 1)}),
+                 "backward": sorted(bwd_t - {t for t, k, o in POOL_BWD_SHAPES
+                                             if (k, o) == (3, 1)})}
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0,
+          "healthy": health["healthy"],
+          "marginal_tflops": health.get("marginal_tflops"),
+          "calibration_tflops": {k: r["calibration_tflops"]
+                                 for k, r in stages.items()},
+          "gan_1024": {k: gan_1024[k] for k in (
+              "dtype", "batch", "imgs_per_sec", "peak_mem_gb", "disc_loss",
+              "g_loss")},
+          "pool_T": sorted(fwd_t), "pool_bwd_T": sorted(bwd_t),
+          "unchecked_T": unchecked, "launches": {"forward": fwd,
+                                                 "backward": bwd,
+                                                 "stem": stem}, **card})
+    if unchecked["forward"] or unchecked["backward"]:
+        raise AssertionError(f"tools: pooled T never held to the plain "
+                             f"pool: {unchecked}")
+    return {"fwd": fwd, "bwd": bwd, "stem": stem}
+
+
+def gc_collect():
+    """Give the card's cached memory back before a tool's process needs
+    it (the 1024 px step pair takes most of the card)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "tools_memory",
+          "parent_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9})
+
+
 def split_row(way, mesh_launches, max_err, times):
     """The kernels line's row of the split entries of the pool's forward or
     backward: their launches on the mesh paths (each path's own count,
@@ -4732,6 +4879,9 @@ def main():
         # the JAX walkthrough's eight steps through the port's CLIs
         examples_fwd, examples_bwd, examples_err = examples_phase(card)
         launches.update(examples_fwd)
+        # the measuring tools, each in its own process
+        tool_counts = tools_phase(card)
+        launches.update(tool_counts["fwd"])
         max_err = max(max_err, fig_err, legacy_err, aux_err, learn_err,
                       examples_err)
         mesh_launches, split_err, split_times = mesh_phase(one, big, card)
@@ -4764,16 +4914,18 @@ def main():
         "name": "stem_u8_conv", "route": "cuda",
         "source": f"{PORT}/csrc/u8_stem.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_stem.py:69",
-        "launches": stem_launches, "max_abs_err": stem_err, **stem_row,
+        "launches": stem_launches + sum(tool_counts["stem"].values()),
+        "max_abs_err": stem_err, **stem_row,
         "shape": {"B": STEM_AB_TILES, "H": 300, "W": 300, "C": 3},
         "launches_by_path": {"classify_slide_streaming_u8_stem":
-                             stem_launches}}, {
+                             stem_launches, **tool_counts["stem"]}}, {
         "name": "gated_attention_pool_backward", "route": "cuda",
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",
         "launches": (bwd_launches + bwd_profile + bwd_launches_legacy
                      + bwd_launches_aux + bwd_launches_learn
-                     + sum(examples_bwd.values())),
+                     + sum(examples_bwd.values())
+                     + sum(tool_counts["bwd"].values())),
         "max_abs_err": max(bwd_err, legacy_err, aux_err, learn_err,
                            examples_err),
         **bwd_times[t_bwd], "library_ms": None,
@@ -4786,7 +4938,7 @@ def main():
                              "legacy_train": bwd_launches_legacy,
                              "aux_head_saliency": bwd_launches_aux,
                              "learn_classifier": bwd_launches_learn,
-                             **examples_bwd}},
+                             **examples_bwd, **tool_counts["bwd"]}},
         *[split_row(way, mesh_launches, split_err, split_times[way])
           for way in ("forward", "backward")]]})
     emit({"ok": True, "device": {"platform": "gpu",

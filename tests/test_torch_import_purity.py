@@ -197,7 +197,16 @@ TOOLS = ("tools/torch_convergence_run.py",
          "tools/torch_gan_convergence_run.py",
          "tools/torch_comm_audit.py",
          "examples/torch_synthetic_demo.py",
-         "examples/torch_full_pipeline_demo.py")
+         "examples/torch_full_pipeline_demo.py",
+         # the measuring tools' twins and what they share
+         "tools/torch_chip_health.py",
+         "tools/torch_profile_stages.py",
+         "tools/torch_profile_gan.py",
+         "tools/torch_exp_gan512.py",
+         "tools/torch_exp_serve.py",
+         "tools/torch_measure.py",
+         "tools/torch_tools_runs.py",
+         "tools/torch_pool_bwd_seeds.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -219,6 +228,20 @@ conv.build_tree(work + "/tree", n_slides=3, tiles_per_slide=4, roi=8)
 gconv.make_dataset(work + "/imgs", 2, 8)
 import numpy as np
 assert gconv.band_stats(np.zeros((2, 8, 8, 3))).shape == (6,)
+from tools import (torch_chip_health, torch_exp_gan512, torch_exp_serve,
+                   torch_profile_gan, torch_profile_stages, torch_tools_runs)
+torch_chip_health.build_argparser().parse_args(["--device", "cpu"])
+torch_profile_stages.build_argparser().parse_args(
+    ["--stem", "kernel", "--json", "--device", "cpu"])
+torch_profile_stages.build_argparser().parse_args(
+    ["--train", "--tiles-per-bag", "2500"])
+torch_profile_gan.build_argparser().parse_args(["--dtype", "ab"])
+torch_exp_gan512.build_argparser().parse_args(
+    ["--probe", "--res", "1024", "--remat", "--grad_accum", "2"])
+torch_exp_serve.build_argparser().parse_args(["--cpu", "--bundle"])
+torch_tools_runs.build_argparser().parse_args(["--out", "o", "--only", "health"])
+from tools import torch_pool_bwd_seeds
+torch_pool_bwd_seeds.build_argparser().parse_args(["--seeds", "300:310"])
 assert all(sys.modules.get(n) is None for n in ("jax", "jaxlib", "{JAX_PKG}"))
 print("TOOLS_IMPORT_PURE")
 """
