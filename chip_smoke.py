@@ -69,18 +69,29 @@ must be below its first and whose held-out slide accuracy must be 1.0,
 its pool launches counted and a sample held to the plain pool; and
 ``tools/torch_gan_convergence_run.py``, the full-width StyleGAN at 8 px
 in f32, which must meet the band-distance criteria, and in bf16,
-recorded). Then ``examples``: the JAX walkthrough's eight steps through
+recorded; and the bf16 serving contract on the classifier just trained:
+each held-out slide through ``classify_slide_streaming`` in bf16 and
+f32, the gap below 1e-3). Then ``examples``: the JAX walkthrough's eight steps through
 the port's CLIs (``examples/torch_full_pipeline_demo.py``) in this
 process on the card, their artifacts, the pool's launches in each step
 (a sample held to the plain pool) and the live driver's checkpoint
 against the CPU. Then ``tools``: the port's measuring tools
-(``tools/torch_*.py``), each in its own process with a time limit: the
-card's health probe, the ResNet-26 per-stage profile (every segment at
+(``tools/torch_*.py``), each in its own process with a time limit, the
+card's health probe alone and the others five at a time side by side
+(they check paths there; their times are not measurements): the
+ResNet-26 per-stage profile (every segment at
 most 1.05 of the bf16 calibration taken in its process), the training
 step's decomposition at 500 tiles, the GAN's pieces, one full-width
-1024 px d+g step pair (finite losses, its peak memory) and the serving
-sweep; their pool and stem launches join the kernels line, and every T
-they pooled must be one phase 2 held to the plain pool. In the mesh
+1024 px d+g step pair (finite losses, its peak memory), the serving
+sweep, and the twins of the last JAX experiment tools (the extractor's
+K x B sweep with both stems, the daemon's ``--io_depth`` A/B on cold
+slides, a cohort of distinct tile counts with and without ``--prewarm``,
+the GAN tool across one resolution transition); their pool and stem
+launches join the kernels line, and every T they pooled must be one
+phase 2 held to the plain pool. After ``gan_parity``, the StyleGAN's
+``instance_norm`` against its formula written out, bit for bit (output
+and gradient, every norm of the 8 and 512 px generator, f32 and bf16
+autocast). In the mesh
 phase, ``comm_audit``: every collective of
 the world of one's window step recorded (``tools/torch_comm_audit.py``)
 and held to the port's pins (no collective: a group of one rank issues
@@ -202,7 +213,11 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     interop,
     torch_interop,
 )
+from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (  # noqa: E402
+    tissue,
+)
 from tools import torch_comm_audit  # noqa: E402
+from tools import torch_exp_serve_hetero  # noqa: E402
 
 PORT = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch"
 JAX_PKG = "deep_convolutional_neural_network_resnet_26_and_attention_network_tpu"
@@ -281,6 +296,17 @@ POOL_SHAPES += [(t, 3, 1) for t in sorted(TOOLS_POOL_T)
                 if (t, 3, 1) not in POOL_SHAPES]
 # all-masked bags: one on each path of the forward
 POOL_MASKED_T = (2048, 50000)
+# the last twins in the tools phase: the io twin's cold slides (every tile
+# of its tissue-coloured noise passes the filter) and the hetero twin's
+# cohort, each slide pooled whole; held after the masked bags, so that
+# every earlier case keeps its seed
+TOOLS_IO = {"n": 3, "px": 2000, "roi": 300}
+TOOLS_HETERO_MAX = 31
+TOOLS_LATE_T = ({len(tissue.sliding_window(
+    (TOOLS_IO["px"], TOOLS_IO["px"], 3), TOOLS_IO["roi"]))}
+    | set(torch_exp_serve_hetero.cohort_sizes(TOOLS_HETERO_MAX)))
+POOL_LATE_SHAPES = [(t, 3, 1) for t in sorted(TOOLS_LATE_T)
+                    if (t, 3, 1) not in POOL_SHAPES]
 # two calls on the same inputs at this T (and at each of POOL_FWD_CROSS)
 # must give bit-identical outputs
 POOL_REPEAT_T = 50000
@@ -378,7 +404,8 @@ def check_pool_kernel():
     """Kernel vs plain on the card, f32, at every listed shape."""
     worst = 0.0
     cases = ([(s, False) for s in POOL_SHAPES]
-             + [((t, 3, 1), True) for t in POOL_MASKED_T])
+             + [((t, 3, 1), True) for t in POOL_MASKED_T]
+             + [(s, False) for s in POOL_LATE_SHAPES])
     for i, ((t, k, o), all_masked) in enumerate(cases):
         args = pool_inputs(t, k, o, seed=100 + i, all_masked=all_masked)
         got = gated_pool.gated_attention_pool(*args)
@@ -3488,6 +3515,84 @@ def gan_parity(card):
                              "CPU or the world of one")
 
 
+def instance_norm_bits(card):
+    """``stylegan.instance_norm`` (one saved copy of x - mu) against the
+    formula written out (``instance_norm_plain``), bit for bit: the output
+    and x's gradient for a random cotangent, at every instance norm the
+    full-width generator runs at 8 and 512 px (batch 2; its inputs
+    captured in that forward), in f32 and under the bf16 autocast of the
+    trainer's ``--compute_dtype bf16``. Also the bytes autograd keeps for
+    the largest of them, each way."""
+    t0 = time.perf_counter()
+    g, _ = _gan_nets()
+    gen = torch.Generator().manual_seed(3)
+    real_norm, rows = sg.instance_norm, []
+
+    def saved_bytes(fn, x):
+        storages = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            fn(x)
+        return sum(storages.values())
+
+    for step in GAN_PARITY_STEPS:
+        for dtype in ("f32", "bf16"):
+            seen = []
+
+            def capture(x, eps=1e-5):
+                seen.append(x.detach().clone())
+                return real_norm(x, eps)
+
+            zs = torch.randn((2, 2, 512), generator=gen).cuda()
+            noise = [n.cuda() for n in sg.make_noise(gen, 2, step)]
+            sg.instance_norm = capture
+            try:
+                with torch.no_grad(), gan._autocast(
+                        "cuda", torch.bfloat16 if dtype == "bf16" else None):
+                    sg.apply_styled_generator(g, zs, noise, step=step,
+                                              alpha=1.0, style_sel=GAN_SEL)
+            finally:
+                sg.instance_norm = real_norm
+            same = 0
+            for x0 in seen:
+                outs = []
+                for fn in (sg.instance_norm_plain, sg.instance_norm):
+                    x = x0.clone().requires_grad_(True)
+                    with gan._autocast("cuda", torch.bfloat16
+                                       if dtype == "bf16" else None):
+                        y = fn(x)
+                    cot = torch.randn(y.shape, generator=torch.Generator(
+                        device="cuda").manual_seed(7), device="cuda",
+                        dtype=y.dtype)
+                    (gx,) = torch.autograd.grad(y, x, cot)
+                    outs.append((y.detach(), gx))
+                same += (torch.equal(outs[0][0], outs[1][0])
+                         and torch.equal(outs[0][1], outs[1][1]))
+            big = max(seen, key=lambda t: t.numel())
+            x = big.clone().requires_grad_(True)
+            with gan._autocast("cuda", torch.bfloat16
+                               if dtype == "bf16" else None):
+                kept = (saved_bytes(sg.instance_norm_plain, x),
+                        saved_bytes(sg.instance_norm, x))
+            rows.append({"px": 4 * 2 ** step, "dtype": dtype,
+                         "norms": len(seen), "bit_identical": same,
+                         "input_dtype": str(big.dtype).split(".")[-1],
+                         "largest": list(big.shape),
+                         "saved_bytes_plain_new": kept})
+    ok = all(r["bit_identical"] == r["norms"] and r["norms"] > 0
+             for r in rows)
+    emit({"phase": "gan_instance_norm_bits", "rows": rows, "ok": ok,
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError(f"instance_norm differs from its plain formula "
+                             f"on the card: {rows}")
+
+
 def _smooth_images(n, size, seed):
     """``n`` uint8 RGB images of a few low-frequency colour waves."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -4331,6 +4436,45 @@ LEARN_EPOCHS = 30                # the JAX convergence run's epochs
 LEARN_SPY = (10, 128)            # hold 10 pool calls, every 128th, to plain
 
 
+def trained_bf16_gap(run_dir, card):
+    """The bf16 serving contract on a trained classifier: each held-out
+    slide of the run (its saved split) through
+    ``classify_slide_streaming`` in bf16 and in f32 (TF32 off) from the
+    run's last checkpoint; the largest probability gap must be below 1e-3
+    (JAX's on its trained checkpoint: 2.7e-4, ``PARITY.md``)."""
+    t0 = time.perf_counter()
+    split, = glob.glob(os.path.join(run_dir,
+                                    "training_validation_testing_data*.json"))
+    with open(split) as f:
+        paths = json.load(f)["validation_paths"]
+    cfg = amil.MILConfig()
+    model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg)
+    ckpt = checkpoint.checkpoint_path(run_dir, LEARN_EPOCHS - 1)
+    checkpoint.restore_params(model, ckpt)
+    model.eval()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gaps = []
+        for path in paths:
+            builder = roibuilder.RoiBuilder(path, {"roi_size": 300})
+            p = {dtype: inference.classify_slide_streaming(
+                model, cfg, builder, resolution=300, chunk=1024,
+                compute_dtype=dtype)[0] for dtype in (torch.bfloat16, None)}
+            gaps.append(float(np.abs(p[torch.bfloat16] - p[None]).max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    gap = max(gaps)
+    emit({"phase": "learn_trained_bf16_gap", "ckpt": os.path.basename(ckpt),
+          "heldout_slides": len(paths), "bf16_vs_f32_max": gap,
+          "by_slide": gaps, "tol": 1e-3, "jax_trained_figure": 2.7e-4,
+          "seconds": time.perf_counter() - t0, **card})
+    if not paths or gap >= 1e-3:
+        raise AssertionError(f"the trained classifier's bf16 gap {gap} "
+                             "breaks the 1e-3 contract")
+    return gap
+
+
 def learn_phase(card):
     """ROADMAP A.15 and A.18 on the card, through the port's convergence
     tools under PyTorch's defaults (TF32 convolutions), as a user runs
@@ -4363,6 +4507,7 @@ def learn_phase(card):
         require_launched("learn_classifier", counts,
                          ("LAUNCHES", "BWD_LAUNCHES"))
         err = hold_spied("learn_classifier", seen)
+        trained_gap = trained_bf16_gap(report["run_dir"], card)
         emit({"phase": "learn_classifier", **report,
               "criteria": "last train loss < first; held-out accuracy 1.0",
               "pool_forward_launches": counts["LAUNCHES"],
@@ -4534,10 +4679,12 @@ TOOLS_SHARE_MAX = 1.05           # a segment above the calibration is a misreadi
 TOOLS_GAN_1024 = ("f32", 16)
 
 
-def run_tool(label, argv, card):
+def run_tool(label, argv, card, ok_rcs=(0,), quiet=False):
     """``python tools/<argv>`` in a subprocess with a time limit; its JSON
-    lines (the last one the tool's result). A non-zero exit or a time-out
-    fails the phase."""
+    lines (the last one the tool's result). An exit code outside
+    ``ok_rcs`` or a time-out fails the phase. The record of the run is
+    printed, or with ``quiet`` returned for the caller to print:
+    ``(rows, record)``."""
     cmd = [sys.executable, os.path.join(ROOT, "tools", argv[0]), *argv[1:]]
     t0 = time.perf_counter()
     try:
@@ -4549,36 +4696,58 @@ def run_tool(label, argv, card):
     secs = time.perf_counter() - t0
     rows = [json.loads(ln) for ln in proc.stdout.splitlines()
             if ln.startswith("{")]
-    if proc.returncode != 0 or not rows:
+    if proc.returncode not in ok_rcs or not rows:
         raise AssertionError(f"tools: {label} exited {proc.returncode}: "
                              f"{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
-    emit({"phase": f"tools_{label}", "argv": argv[1:], "seconds": secs,
-          "result": rows[-1] if len(rows) == 1 else rows, **card})
+    record = {"phase": f"tools_{label}", "argv": argv[1:], "seconds": secs,
+              "result": rows[-1] if len(rows) == 1 else rows, **card}
+    if quiet:
+        return rows, record
+    emit(record)
     return rows
 
 
 def tools_phase(card):
     """The port's measuring tools (``tools/torch_*.py``), each in a
     subprocess at a small real size, as a user runs them: the card's
-    health probe; the ResNet-26 per-stage profile at batch 64 with the
-    cuDNN stem and with the stem kernel, whose every segment and whole
-    forward must stay at or below ``TOOLS_SHARE_MAX`` of the calibration
-    taken in the same process; the single-bag training step at 500 tiles
-    (the pool's forward and backward kernels at its subsample); the GAN's
-    piece medians at 32 px; one full-width 1024 px d+g step pair
-    (``TOOLS_GAN_1024``), whose losses must be finite and whose peak
-    memory is printed; the serving daemon over four 64-tile slides. Each
-    kernel must have launched in the tools that run it, and every T the
-    tools pooled must be one that phase 2 held to the plain pool. Returns
-    the launches by tool: ``{"fwd": ..., "bwd": ..., "stem": ...}``."""
+    health probe, alone (its probes have time budgets); then, side by
+    side (``run_side_by_side``), the ResNet-26 per-stage profile at batch
+    64 with the cuDNN stem and with the stem kernel, whose every segment
+    and whole forward must stay at or below ``TOOLS_SHARE_MAX`` of the
+    calibration taken in the same process; the single-bag training step
+    at 500 tiles (the pool's forward and backward kernels at its
+    subsample); the GAN's piece medians at 32 px; one full-width 1024 px
+    d+g step pair (``TOOLS_GAN_1024``), whose losses must be finite and
+    whose peak memory is printed; the serving daemon over four 64-tile
+    slides; and the last twins (``last_twins``). Each kernel must have
+    launched in the tools that run it, and every T the tools pooled must
+    be one that phase 2 held to the plain pool. Returns the launches by
+    tool: ``{"fwd": ..., "bwd": ..., "stem": ...}``."""
     gc_collect()
     t0 = time.perf_counter()
     health = run_tool("chip_health", ["torch_chip_health.py"], card)[-1]
+    dtype, batch = TOOLS_GAN_1024
+    jobs = {f"profile_stages_{stem}": (["torch_profile_stages.py",
+                                        "--batch", "64", "--iters", "3",
+                                        "--stem", stem, "--json"], (0,))
+            for stem in ("cudnn", "kernel")}
+    jobs.update({
+        "profile_train": (["torch_profile_stages.py", "--train",
+                           "--tiles-per-bag", str(TOOLS_TRAIN_BAG),
+                           "--iters", "2", "--json"], (0,)),
+        "profile_gan": (["torch_profile_gan.py", "--res", "32", "--batch",
+                         "16", "--rounds", "2"], (0,)),
+        "exp_gan512_1024px": (["torch_exp_gan512.py", "--probe", "--res",
+                               "1024", "--batch", str(batch), "--dtype",
+                               dtype, "--iters", "1"], (0,)),
+        "exp_serve": (["torch_exp_serve.py", "--slides", "4", "--tiles",
+                       str(TOOLS_SERVE_TILES), "--batch", "2", "--keep",
+                       os.path.join(CACHE, "tools_serve")], (0,)),
+        **LAST_TWINS})
+    rows = run_side_by_side(jobs, card)
     stages = {}
     for stem in ("cudnn", "kernel"):
-        row = run_tool(f"profile_stages_{stem}", [
-            "torch_profile_stages.py", "--batch", "64", "--iters", "3",
-            "--stem", stem, "--json"], card)[-1]
+        row = rows[f"profile_stages_{stem}"][-1]
         shares = {s["name"]: s["share_of_calibration"]
                   for s in row["segments"]}
         shares["full"] = row["full_share_of_calibration"]
@@ -4590,35 +4759,29 @@ def tools_phase(card):
     if stages["kernel"]["stem_launches"] < 1:
         raise AssertionError("tools: --stem kernel never launched the stem "
                              "kernel")
-    train = run_tool("profile_train", [
-        "torch_profile_stages.py", "--train", "--tiles-per-bag",
-        str(TOOLS_TRAIN_BAG), "--iters", "2", "--json"], card)[-1]
-    run_tool("profile_gan", ["torch_profile_gan.py", "--res", "32",
-                             "--batch", "16", "--rounds", "2"], card)
-    dtype, batch = TOOLS_GAN_1024
-    gan_1024 = run_tool("exp_gan512_1024px", [
-        "torch_exp_gan512.py", "--probe", "--res", "1024", "--batch",
-        str(batch), "--dtype", dtype, "--iters", "1"], card)[-1]
+    train = rows["profile_train"][-1]
+    gan_1024 = rows["exp_gan512_1024px"][-1]
     if not (gan_1024["fit"] and math.isfinite(gan_1024["disc_loss"])
             and math.isfinite(gan_1024["g_loss"])
             and gan_1024["peak_mem_gb"] > 0):
         raise AssertionError(f"tools: the 1024 px step pair failed: "
                              f"{gan_1024}")
-    serve_rows = run_tool("exp_serve", [
-        "torch_exp_serve.py", "--slides", "4", "--tiles",
-        str(TOOLS_SERVE_TILES), "--batch", "2",
-        "--keep", os.path.join(CACHE, "tools_serve")], card)
-    pooled = [train] + serve_rows
+    serve_rows = rows["exp_serve"]
+    late = last_twins(rows)
+    pooled = [train] + serve_rows + late["pooled"]
     fwd = {"tools_profile_train": train["pool_launches"],
-           "tools_exp_serve": sum(r["pool_launches"] for r in serve_rows)}
+           "tools_exp_serve": sum(r["pool_launches"] for r in serve_rows),
+           **late["fwd"]}
     bwd = {"tools_profile_train": train["pool_bwd_launches"]}
-    stem = {"tools_profile_stages_kernel": stages["kernel"]["stem_launches"]}
+    stem = {"tools_profile_stages_kernel": stages["kernel"]["stem_launches"],
+            **late["stem"]}
     if min(*fwd.values(), *bwd.values()) < 1:
         raise AssertionError(f"tools: the pool's kernels never launched: "
                              f"{fwd} {bwd}")
     fwd_t = set().union(*(r["pool_T"] for r in pooled))
     bwd_t = set().union(*(r["pool_bwd_T"] for r in pooled))
     unchecked = {"forward": sorted(fwd_t - {t for t, k, o in POOL_SHAPES
+                                            + POOL_LATE_SHAPES
                                             if (k, o) == (3, 1)}),
                  "backward": sorted(bwd_t - {t for t, k, o in POOL_BWD_SHAPES
                                              if (k, o) == (3, 1)})}
@@ -4630,6 +4793,7 @@ def tools_phase(card):
           "gan_1024": {k: gan_1024[k] for k in (
               "dtype", "batch", "imgs_per_sec", "peak_mem_gb", "disc_loss",
               "g_loss")},
+          "side_by_side": list(jobs),
           "pool_T": sorted(fwd_t), "pool_bwd_T": sorted(bwd_t),
           "unchecked_T": unchecked, "launches": {"forward": fwd,
                                                  "backward": bwd,
@@ -4638,6 +4802,101 @@ def tools_phase(card):
         raise AssertionError(f"tools: pooled T never held to the plain "
                              f"pool: {unchecked}")
     return {"fwd": fwd, "bwd": bwd, "stem": stem}
+
+
+TOOLS_WORKERS = 5                # tools running at once after the health probe
+
+
+def run_side_by_side(jobs, card, workers=TOOLS_WORKERS):
+    """``{label: (tool argv, accepted exit codes)}`` through ``run_tool``,
+    ``workers`` processes at a time on the card, their records printed
+    in the jobs' order once all have ended. The tools check paths here,
+    and their times, taken beside each other, are not measurements
+    (``tools/torch_tools_runs.py`` runs them one at a time). Returns each
+    label's JSON rows."""
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        done = dict(zip(jobs, pool.map(
+            lambda j: run_tool(j[0], j[1][0], card, ok_rcs=j[1][1],
+                               quiet=True), jobs.items())))
+    for rows, record in done.values():
+        emit({**record, "side_by_side": True})
+    return {label: rows for label, (rows, _) in done.items()}
+
+
+TOOLS_MEGABATCH = "1x256,2x256"  # K x B, the extractor's dispatch sweep
+# two epochs across one transition (8 -> 16 px) of the GAN tool's schedule
+TOOLS_GAN_SCHEDULE = ["--res", "8", "--max_res", "16", "--epochs", "2",
+                      "--step_every", "1", "--n_images", "256"]
+# the twins of the JAX side's last experiment tools, at cut sizes: the
+# extractor's K x B sweep with both stems, the daemon's --io_depth A/B on
+# three cold 2000 px slides, the mixed-size cohort without and with
+# --prewarm, the GAN tool across one transition (two epochs are not meant
+# to converge, so its exit 1 is taken)
+LAST_TWINS = {
+    "exp_megabatch": (["torch_exp_megabatch.py", "--configs",
+                       TOOLS_MEGABATCH, "--rounds", "2", "--stem",
+                       "cudnn,kernel"], (0,)),
+    "exp_serve_io": (["torch_exp_serve_io.py", "--n", str(TOOLS_IO["n"]),
+                      "--px", str(TOOLS_IO["px"]), "--roi",
+                      str(TOOLS_IO["roi"]), "--reps", "1"], (0,)),
+    "exp_serve_hetero": (["torch_exp_serve_hetero.py", "--max_tiles",
+                          str(TOOLS_HETERO_MAX)], (0,)),
+    "gan_convergence_schedule": (["torch_gan_convergence_run.py",
+                                  *TOOLS_GAN_SCHEDULE], (0, 1))}
+
+
+def _probs_gap(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def last_twins(rows):
+    """The checks on the last twins' runs (``LAST_TWINS``; ``rows`` by
+    label): the stem kernel launched in the K x B sweep; the io twin's
+    variants each pooled every slide, their probabilities within 1e-6;
+    the hetero twin saw one chunk shape a distinct tile count, pooled
+    each slide (and the prewarm chunk), its variants' probabilities
+    within 1e-6; the GAN tool's record has one transition and finite
+    distances at both resolutions. Returns their pool and stem launches
+    and their pooled rows."""
+    mega, io_rows, hetero = (rows[k] for k in (
+        "exp_megabatch", "exp_serve_io", "exp_serve_hetero"))
+    gan_rec = rows["gan_convergence_schedule"][-1]
+    kernel_rows = [r for r in mega if r["stem"] == "kernel"]
+    io_variants = [r for r in io_rows if "io_depth" in r
+                   and "slides" in r]
+    sizes = torch_exp_serve_hetero.cohort_sizes(TOOLS_HETERO_MAX)
+    bad = []
+    if min(r["stem_launches"] for r in kernel_rows) < 1:
+        bad.append("the megabatch sweep never launched the stem kernel")
+    if (len(io_variants) != 2
+            or any(r["pool_launches"] != TOOLS_IO["n"] for r in io_variants)
+            or _probs_gap(*([s["probs"] for s in r["slides"]]
+                            for r in io_variants)) > 1e-6):
+        bad.append(f"the io twin's variants: {io_variants}")
+    for r in hetero:
+        # the prewarm variant pools one zero chunk first
+        if (r["rc"] != 0 or r["n_shapes"] != len(sizes)
+                or sorted(r["slide_tiles"]) != sorted(sizes)
+                or r["pool_launches"] != len(sizes) + (r["variant"]
+                                                      == "prewarm")):
+            bad.append(f"the hetero twin's {r['variant']} variant: {r}")
+    if _probs_gap(*(r["slide_probs"] for r in hetero)) > 1e-6:
+        bad.append("the hetero twin's variants' rows differ")
+    if not (gan_rec.get("res_transitions") == 1
+            and gan_rec.get("max_res") == 16
+            and all(math.isfinite(gan_rec.get(k, math.nan)) for k in (
+                "band_dist_generator", "band_dist_pre_transition"))):
+        bad.append(f"the GAN tool's schedule run: {gan_rec}")
+    if bad:
+        raise AssertionError("tools: " + "; ".join(bad))
+    return {"fwd": {"tools_exp_serve_io": sum(r["pool_launches"]
+                                              for r in io_variants),
+                    "tools_exp_serve_hetero": sum(r["pool_launches"]
+                                                  for r in hetero)},
+            "stem": {"tools_exp_megabatch": sum(r["stem_launches"]
+                                                for r in kernel_rows)},
+            "pooled": [{"pool_T": r["pool_T"], "pool_bwd_T": []}
+                       for r in io_variants + hetero]}
 
 
 def gc_collect():
@@ -4860,6 +5119,7 @@ def main():
         launches["figures_visualize"], fig_err = figures_phase(flags, one,
                                                                card)
         gan_parity(card)
+        instance_norm_bits(card)
         gan_ckpt = gan_train(card)
         gan_step_costs(card)
         gan_lrelu_ab(card)

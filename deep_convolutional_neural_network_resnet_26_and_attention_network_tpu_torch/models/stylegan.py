@@ -214,12 +214,50 @@ def pixel_norm(x, dim=1, eps=1e-8):
     return x * torch.rsqrt(torch.mean(x * x, dim=dim, keepdim=True) + eps)
 
 
-def instance_norm(x, eps=1e-5):
-    """Per-sample per-channel spatial normalization (torch InstanceNorm2d,
-    affine=False). x: [N, C, H, W]."""
+def instance_norm_plain(x, eps=1e-5):
+    """The formula as autograd sees it when written out: ``x - mu`` is
+    formed twice, and the backward keeps both copies (one under ``** 2``,
+    one under the product). :func:`instance_norm` is held to it bit for
+    bit."""
     mu = torch.mean(x, dim=(2, 3), keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=(2, 3), keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps)
+
+
+class _CenteredScale(torch.autograd.Function):
+    """``b * r`` whose backward is ``mul``'s own, but which saves ``a``, the
+    operand of the variance's ``** 2``, in place of ``b``. Both are
+    ``x - mu`` of the same tensors, so they hold the same bits; autograd
+    already keeps ``a`` for the ``** 2``, and the product then adds no
+    second activation-sized copy (a 1024 px f32 step's largest buffers).
+    The graph and each gradient term are those of
+    :func:`instance_norm_plain`, so the gradient is unchanged bit for bit.
+    Nothing differentiates the generator twice (the critic's gradient
+    penalty detaches its input), so one backward is enough."""
+
+    @staticmethod
+    def forward(ctx, b, r, a):
+        ctx.save_for_backward(a, r)
+        return b * r
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, r = ctx.saved_tensors
+        gb = g * r if ctx.needs_input_grad[0] else None
+        gr = ((g * a).sum((2, 3), keepdim=True)
+              if ctx.needs_input_grad[1] else None)
+        return gb, gr, None
+
+
+def instance_norm(x, eps=1e-5):
+    """Per-sample per-channel spatial normalization (torch InstanceNorm2d,
+    affine=False). x: [N, C, H, W]. The arithmetic of
+    :func:`instance_norm_plain`, with one saved copy of ``x - mu``."""
+    mu = torch.mean(x, dim=(2, 3), keepdim=True)
+    a = x - mu
+    var = torch.mean(a ** 2, dim=(2, 3), keepdim=True)
+    return _CenteredScale.apply(x - mu, torch.rsqrt(var + eps), a.detach())
 
 
 class PixelNorm(nn.Module):

@@ -18,13 +18,15 @@ from tools import torch_convergence_run as conv
 from tools import torch_gan_convergence_run as gconv
 
 # the keys of the JAX tools' report lines (tools/convergence_run.py; of
-# tools/gan_convergence_run.py those of a run at one resolution)
+# tools/gan_convergence_run.py those of a run without a transition, whose
+# pre-transition keys are absent)
 CLASSIFIER_KEYS = {
     "epochs", "slides", "arch", "resolution", "first_train_loss",
     "last_train_loss", "last_train_err", "heldout_accuracy",
     "secs_per_train_epoch_median", "total_wall_secs", "run_dir"}
 GAN_KEYS = {
-    "converged", "res", "width_mult", "epochs", "samples",
+    "converged", "res", "max_res", "res_transitions", "step_every",
+    "grad_accum", "ema_decay", "ema_warmup", "width_mult", "epochs", "samples",
     "band_dist_init", "band_dist_generator", "band_dist_g_running",
     "band_contrast_real", "band_contrast_init", "band_contrast_generator",
     "train_wall_secs", "ckpt"}
@@ -86,7 +88,8 @@ def test_gan_tool_tiny_runs_the_port_trainer(tmp_path, capsys):
     argv = ["--tiny", "--device", "cpu", "--epochs", "2", "--n_images",
             "64", "--batch", "16", "--keep", str(tmp_path)]
     record = gconv.run(argv)
-    assert set(record) == GAN_KEYS | {"compute_dtype", "seed"}
+    assert set(record) == GAN_KEYS | {"compute_dtype", "seed", "ckpt_every",
+                                      "card", "power_limit"}
     assert record["width_mult"] == 1 / 16 and record["samples"] == 128
     assert record["seed"] == 1  # the JAX tool's training seed
     for k in ("band_dist_init", "band_dist_generator",

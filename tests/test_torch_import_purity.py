@@ -206,7 +206,13 @@ TOOLS = ("tools/torch_convergence_run.py",
          "tools/torch_exp_serve.py",
          "tools/torch_measure.py",
          "tools/torch_tools_runs.py",
-         "tools/torch_pool_bwd_seeds.py")
+         "tools/torch_pool_bwd_seeds.py",
+         # the last experiment tools' twins (the seed spread, a comparison
+         # tool, imports JAX in its JAX runs and is not listed)
+         "tools/torch_exp_megabatch.py",
+         "tools/torch_exp_serve_io.py",
+         "tools/torch_exp_serve_hetero.py",
+         "tools/torch_gan_convergence_r05.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -242,6 +248,13 @@ torch_exp_serve.build_argparser().parse_args(["--cpu", "--bundle"])
 torch_tools_runs.build_argparser().parse_args(["--out", "o", "--only", "health"])
 from tools import torch_pool_bwd_seeds
 torch_pool_bwd_seeds.build_argparser().parse_args(["--seeds", "300:310"])
+from tools import (torch_exp_megabatch, torch_exp_serve_hetero,
+                   torch_exp_serve_io, torch_gan_convergence_r05)
+torch_exp_megabatch.build_argparser().parse_args(["--stem", "kernel"])
+torch_exp_serve_io.build_argparser().parse_args(["--roi", "300"])
+torch_exp_serve_hetero.build_argparser().parse_args(["--max_tiles", "31"])
+gconv.build_argparser().parse_args(["--max_res", "32", "--ema_warmup"])
+assert len(torch_gan_convergence_r05.CONFIGS) == 3
 assert all(sys.modules.get(n) is None for n in ("jax", "jaxlib", "{JAX_PKG}"))
 print("TOOLS_IMPORT_PURE")
 """

@@ -107,32 +107,62 @@ def test_keep_flags_and_tiles_match_torch_and_jax(built, jnative, roi, size,
 
 
 _THREAD_PROBE = """
-import os, sys
+import os, sys, time
 import numpy as np
 sys.path.insert(0, {repo!r})
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import native
 native._get_lib()
 img = np.random.default_rng(0).integers(0, 256, (400, 400, 3), dtype=np.uint8)
 raster = np.array([[r, c] for r in range(0, 368, 32) for c in range(0, 368, 32)])
-before = len(os.listdir("/proc/self/task"))
+
+
+def tasks():
+    # each OS thread of this process: its name and state, or "exited"
+    # when it left between the listing and the read
+    out = {{}}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{{tid}}/comm") as f:
+                comm = f.read().strip()
+            with open(f"/proc/self/task/{{tid}}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            comm, state = "?", "exited"
+        out[tid] = f"{{comm}}:{{state}}"
+    return out
+
+
+before = tasks()
 for _ in range(3):
     native.tissue_mask_native(img, raster, 32)
     native.gather_tiles_native(img, raster, 32)
-print(before, len(os.listdir("/proc/self/task")))
+# std::thread::join returns once the kernel has cleared the worker's tid,
+# before it unhashes the task from the thread group, so a joined worker
+# can stay listed for a moment; a worker that outlives the call never
+# leaves, and the wait ends at its bound
+deadline = time.monotonic() + 5
+after = tasks()
+while len(after) != len(before) and time.monotonic() < deadline:
+    time.sleep(0.01)
+    after = tasks()
+extra = sorted(v for tid, v in after.items() if tid not in before)
+print(len(before), len(after), *extra)
 """
 
 
 def test_calls_leave_no_threads_behind(built):
     """The filter's workers are joined inside each call: a fresh process
     that runs it has as many threads after as before (an OpenMP runtime
-    keeps its pool alive after the first parallel loop)."""
+    keeps its pool alive after the first parallel loop). ``before`` is
+    read ahead of the first call, so a pool that the first call starts
+    would show."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c",
                            _THREAD_PROBE.format(repo=repo)],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    before, after = map(int, proc.stdout.split())
-    assert after == before
+    before, after, *extra = proc.stdout.split()
+    assert after == before, f"threads left after the calls: {extra}"
 
 
 def test_border_coords_are_safe(built):

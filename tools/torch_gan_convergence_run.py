@@ -4,12 +4,21 @@ trainer LEARNS, not merely steps.
 The twin of ``tools/gan_convergence_run.py``: the same two-band palette
 images (its ``make_dataset``), the same band-stats metric (its
 ``band_stats`` / ``band_contrast``; those three use only numpy and
-Pillow), the same trainer arguments at one resolution (2048 images, res
-8, 30 epochs, batch 64, full width, training seed 1, the phase and the
-checkpoint cadence the JAX tool derives), and the same criteria, driving
-``<port>/data/gan_dataset`` and ``<port>/train/gan.main`` and generating
-with the port's generator. It imports no JAX, so it runs on a machine
-without it.
+Pillow), the same trainer arguments (2048 images, res 8, 30 epochs, batch
+64, full width, training seed 1) and the same schedule (:func:`schedule`:
+the epochs a resolution, the phase, the checkpoint cadence), and the same
+criteria, driving ``<port>/data/gan_dataset`` and ``<port>/train/gan.main``
+and generating with the port's generator. It imports no JAX, so it runs on
+a machine without it.
+
+``--max_res`` above ``--res`` trains across the progressive-growing
+transitions (``--step_every`` epochs a resolution, by default the epoch
+budget split evenly; a phase of half an epoch's images, so that each
+fade-in ends inside its epoch; a checkpoint at the end of each
+resolution), judges at ``--max_res`` and also judges the last epoch before
+the first transition at ``--res`` (``band_dist_pre_transition``), as the
+JAX tool does. ``--grad_accum``, ``--ema_decay`` and ``--ema_warmup`` pass
+through to the trainer.
 
 Criteria (the JAX tool's): the trainer exits 0, and the mean-abs distance
 from the trained generator's band stats to the real data's is below 0.15
@@ -18,14 +27,13 @@ architecture from another seed). The running-average generator
 (``g_running``) is judged and printed beside it, as in the JAX tool.
 
 ``--compute_dtype bf16`` trains under ``torch.autocast`` (the trainer's
-option); the JAX runs were float32. The JAX tool's progressive-growing
-runs (``--max_res``) and its ``--grad_accum`` / ``--ema_*`` pass-throughs
-have no counterpart here.
+option); the JAX runs were float32.
 
 Usage:
     python tools/torch_gan_convergence_run.py                  # card, f32
     python tools/torch_gan_convergence_run.py --compute_dtype bf16
     python tools/torch_gan_convergence_run.py --seed 2        # another run
+    python tools/torch_gan_convergence_run.py --max_res 32 --ema_decay 0.99
     python tools/torch_gan_convergence_run.py --tiny --device cpu \\
         --epochs 1 --n_images 64 --batch 16                    # smoke
 """
@@ -34,6 +42,7 @@ import argparse
 import glob
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -43,6 +52,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))  # repo root, for `python tools/...`
 
+from tools import torch_measure as TM  # noqa: E402
 from tools.gan_convergence_run import (  # noqa: E402
     band_contrast,
     band_stats,
@@ -75,6 +85,13 @@ def generate(gen, n, step, seed, device):
 def build_argparser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, default=8)
+    ap.add_argument("--max_res", type=int, default=None,
+                    help="final resolution; above --res the run trains "
+                         "across the progressive-growing transitions and "
+                         "is judged at this resolution")
+    ap.add_argument("--step_every", type=int, default=None,
+                    help="epochs a resolution (default: the epoch budget "
+                         "split evenly across the resolutions)")
     ap.add_argument("--n_images", type=int, default=2048)
     ap.add_argument("--epochs", type=int, default=30)
     ap.add_argument("--batch", type=int, default=64)
@@ -89,7 +106,68 @@ def build_argparser():
                     help="the trainer's device: the card unless 'cpu'")
     ap.add_argument("--seed", type=int, default=1,
                     help="the trainer's seed (the JAX tool's is 1)")
+    ap.add_argument("--grad_accum", type=int, default=1,
+                    help="microbatches a step (train.gan --grad_accum)")
+    ap.add_argument("--ema_decay", type=float, default=0.999,
+                    help="g_running's decay (train.gan --ema_decay)")
+    ap.add_argument("--ema_warmup", action="store_true",
+                    help="train.gan --ema_warmup: the decay "
+                         "min(ema_decay, (1+t)/(10+t))")
     return ap
+
+
+def schedule(res, max_res, epochs, n_images, step_every=None):
+    """The JAX tool's schedule: the epochs a resolution, the phase (half
+    an epoch's images when a transition comes, else past the run), the
+    checkpoint cadence (one a resolution), the resolution step of each
+    epoch, the transitions, the judged step and the last epoch before the
+    first transition."""
+    max_res = max_res or res
+    if max_res < res:
+        raise SystemExit(f"--max_res {max_res} is below --res {res}")
+    n_res = int(np.log2(max_res)) - int(np.log2(res)) + 1
+    step_every = step_every or max(epochs // n_res, 1)
+    init_step, max_step = int(np.log2(res)) - 2, int(np.log2(max_res)) - 2
+    res_seq = [min(init_step + e // step_every, max_step)
+               for e in range(epochs)]
+    transitions = sum(a != b for a, b in zip(res_seq, res_seq[1:]))
+    return {"max_res": max_res, "step_every": step_every,
+            "phase": (max(n_images // 2, 512) if max_res > res
+                      else max(n_images * 2, 4000)),
+            "ckpt_every": step_every, "init_step": init_step,
+            "max_step": max_step, "res_seq": res_seq,
+            "res_transitions": transitions,
+            "pre_transition_epoch": step_every - 1 if transitions else None}
+
+
+def trainer_argv(args, store, out, width, sched):
+    """``train.gan.main``'s arguments: the JAX tool's, with the seed and
+    the compute dtype."""
+    return (["--data_dir", store, "--output_dir", out,
+             "--init_size", str(args.res),
+             "--max_size", str(sched["max_res"]),
+             "--step_every", str(sched["step_every"]),
+             "--phase", str(sched["phase"]),
+             "--epochs", str(args.epochs),
+             "--batch_override", str(args.batch),
+             "--grad_accum", str(args.grad_accum),
+             "--ema_decay", str(args.ema_decay),
+             "--ckpt_every", str(sched["ckpt_every"]),
+             "--width_mult", str(width), "--seed", str(args.seed),
+             "--compute_dtype", args.compute_dtype]
+            + (["--ema_warmup"] if args.ema_warmup else []))
+
+
+def _restore(template, path, section):
+    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.train import (
+        gan,
+    )
+
+    with np.load(path, allow_pickle=False) as z:
+        blob = {k: z[k] for k in z.files}
+    loaded, total = gan.restore_section(template, blob, section)
+    assert loaded == total, (section, loaded, total)
+    return template
 
 
 def run(argv=None) -> dict:
@@ -98,9 +176,6 @@ def run(argv=None) -> dict:
     criteria)."""
     import torch
 
-    from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch._device import (
-        resolve_device,
-    )
     from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.data import (
         gan_dataset,
     )
@@ -112,31 +187,38 @@ def run(argv=None) -> dict:
     )
 
     args = build_argparser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = TM.resolve(args.device, "torch_gan_convergence_run")
     width = (1 / 16) if args.tiny else args.width
+    sched = schedule(args.res, args.max_res, args.epochs, args.n_images,
+                     args.step_every)
+    max_res = sched["max_res"]
 
     workdir = args.keep or tempfile.mkdtemp(prefix="torch_gan_conv_")
     img_dir = os.path.join(workdir, "imgs")
     store = os.path.join(workdir, "store")
     out = os.path.join(workdir, "run")
-    step = int(np.log2(args.res)) - 2
+    step = sched["max_step"]  # judged at the final resolution
 
     print(f"# workdir {workdir}")
-    make_dataset(img_dir, args.n_images, 4 * args.res)
+    make_dataset(img_dir, args.n_images, 4 * max_res)
     gan_dataset._main(["--src", img_dir, "--out", store,
-                       "--max-size", str(args.res), "--seed", "0"],
+                       "--max-size", str(max_res), "--seed", "0"],
                       device=device)
 
-    # the real data's statistics from the first 512 PNGs, resized to the
-    # judged resolution (as the JAX tool does)
+    # the real data's statistics from the first 512 PNGs, each decoded
+    # once and resized to every judged resolution (as the JAX tool does)
     from PIL import Image
 
-    real = []
+    judge_res = {max_res} | ({args.res} if sched["res_transitions"]
+                             else set())
+    stacks = {r: [] for r in judge_res}
     for p in sorted(glob.glob(os.path.join(img_dir, "*.png")))[:512]:
         with Image.open(p) as im:
-            real.append(np.asarray(im.resize((args.res, args.res)),
-                                   np.float32) / 127.5 - 1.0)
-    real = np.stack(real)
+            for r in judge_res:
+                stacks[r].append(np.asarray(im.resize((r, r)), np.float32)
+                                 / 127.5 - 1.0)
+    real_by_res = {r: np.stack(v) for r, v in stacks.items()}
+    real = real_by_res[max_res]
     s_real = band_stats(real)
     c_real = band_contrast(real)
 
@@ -150,15 +232,7 @@ def run(argv=None) -> dict:
     del g0
 
     t0 = time.time()
-    rc = gan.main(["--data_dir", store, "--output_dir", out,
-                   "--init_size", str(args.res), "--max_size", str(args.res),
-                   "--step_every", str(args.epochs),
-                   "--phase", str(max(args.n_images * 2, 4000)),
-                   "--epochs", str(args.epochs),
-                   "--batch_override", str(args.batch),
-                   "--ckpt_every", str(args.epochs),
-                   "--width_mult", str(width), "--seed", str(args.seed),
-                   "--compute_dtype", args.compute_dtype],
+    rc = gan.main(trainer_argv(args, store, out, width, sched),
                   device=device)
     wall = time.time() - t0
     if rc not in (0, None):
@@ -166,18 +240,16 @@ def run(argv=None) -> dict:
         print(json.dumps(record))
         return record
 
-    last = os.path.join(out, "checkpoint",
-                        f"train_step-{args.epochs - 1}.model")
-    with np.load(last, allow_pickle=False) as z:
-        blob = {k: z[k] for k in z.files}
+    ckpts = glob.glob(os.path.join(out, "checkpoint", "train_step-*.model"))
+    last = max(ckpts, key=lambda p: int(
+        re.search(r"-(\d+)\.model$", p).group(1)))
     template = sg.init_styled_generator(torch.Generator().manual_seed(0),
                                         style_dim=CODE_SIZE,
                                         width_mult=width, device=device)
     dist, contrast = {}, {}
     for section in ("generator", "g_running"):
-        loaded, total = gan.restore_section(template, blob, section)
-        assert loaded == total, (section, loaded, total)
-        imgs = generate(template, N_JUDGE, step, 7, device)
+        imgs = generate(_restore(template, last, section), N_JUDGE, step, 7,
+                        device)
         dist[section] = float(np.abs(band_stats(imgs) - s_real).mean())
         contrast[section] = band_contrast(imgs)
 
@@ -185,7 +257,11 @@ def run(argv=None) -> dict:
     converged = bool(d_gen < 0.15 and d_gen < 0.5 * d_init)
 
     record = {
-        "converged": converged, "res": args.res,
+        "converged": converged, "res": args.res, "max_res": max_res,
+        "res_transitions": sched["res_transitions"],
+        "step_every": sched["step_every"],
+        "ckpt_every": sched["ckpt_every"], "grad_accum": args.grad_accum,
+        "ema_decay": args.ema_decay, "ema_warmup": args.ema_warmup,
         "compute_dtype": args.compute_dtype, "width_mult": width,
         "seed": args.seed, "epochs": args.epochs,
         "samples": args.n_images * args.epochs,
@@ -196,7 +272,19 @@ def run(argv=None) -> dict:
         "band_contrast_init": round(c_init, 4),
         "band_contrast_generator": round(contrast["generator"], 4),
         "train_wall_secs": round(wall, 1), "ckpt": last,
+        **TM.card_record(device),
     }
+    pre_ep = sched["pre_transition_epoch"]
+    pre_path = os.path.join(out, "checkpoint", f"train_step-{pre_ep}.model")
+    if pre_ep is not None and os.path.exists(pre_path):
+        # learned before the fade against after it: the last epoch before
+        # the first transition, judged at the starting resolution
+        pre_imgs = generate(_restore(template, pre_path, "generator"),
+                            N_JUDGE, sched["init_step"], 7, device)
+        record["band_dist_pre_transition"] = round(float(np.abs(
+            band_stats(pre_imgs) - band_stats(real_by_res[args.res])
+        ).mean()), 4)
+        record["pre_transition_epoch"] = pre_ep
     print(json.dumps(record))
     return record
 

@@ -10,8 +10,13 @@ the fit sweep at 512 and 1024 px (both dtypes, the ladder 16,8,4,2,1,
 fit, the batches above 16 up to where the memory ends, and each
 configuration ``GAN512_r04.jsonl`` / ``GAN1024_r04.jsonl`` lists), the
 smallest out-of-memory batch of each dtype rerun once with
-``--mem_history`` to name what holds the memory; and the serving sweep
-on its default cohort (24 slides x 64 tiles) and on six 2000-tile slides.
+``--mem_history`` to name what holds the memory; the serving sweep on
+its default cohort (24 slides x 64 tiles) and on six 2000-tile slides;
+the extractor's K x B sweep with both stems; the daemon's ``--io_depth``
+A/B on six cold 6000 px slides at roi 1200 and at roi 300; the
+mixed-size cohort; the StyleGAN's f32 convergence run at seeds 4 and 5;
+and the three EMA configs of the r05 script's twin (under
+``<out>/gan_r05``).
 
 Each run's stdout and stderr go to ``<out>/<name>.out`` / ``.err``; a run
 that fails does not stop the others, and the runner then exits 1.
@@ -102,7 +107,8 @@ def build_argparser():
     ap.add_argument("--only", default=None,
                     help="comma-separated prefixes of run names (health, "
                          "calibration, stages, train, gan, fit512, fit1024, "
-                         "serve)")
+                         "serve, megabatch, serve_io, serve_hetero, "
+                         "gan_seed, gan_r05)")
     return ap
 
 
@@ -152,6 +158,15 @@ def main(argv=None) -> int:
     go("serve64", ["torch_exp_serve.py"])
     go("serve2000", ["torch_exp_serve.py", "--tiles", "2000", "--slides",
                      "6", "--batch", "0"])
+    go("megabatch", ["torch_exp_megabatch.py", "--stem", "cudnn,kernel"])
+    go("serve_io_roi1200", ["torch_exp_serve_io.py"])
+    go("serve_io_roi300", ["torch_exp_serve_io.py", "--roi", "300"])
+    go("serve_hetero", ["torch_exp_serve_hetero.py"])
+    for seed in (4, 5):
+        go(f"gan_seed{seed}", ["torch_gan_convergence_run.py", "--seed",
+                               str(seed)])
+    go("gan_r05", ["torch_gan_convergence_r05.py", "--out",
+                   os.path.join(args.out, "gan_r05")])
     print(json.dumps({"failed": failed}), flush=True)
     return 1 if failed else 0
 
