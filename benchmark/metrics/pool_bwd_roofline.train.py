@@ -1,0 +1,6 @@
+"""The gated pool's backward kernel (``gated_pool_bwd_kernel``) against its
+roofline: the least time of each launch in the window, by its bytes at
+3.35 TB/s or its operations at the float32 peak, over the launches' device
+time, from the device trace and the bags' subsample sizes."""
+
+from benchmark.readers import pool_bwd_roofline as read  # noqa: F401
