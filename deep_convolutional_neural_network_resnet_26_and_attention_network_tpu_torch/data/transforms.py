@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import loader
 
 MEAN = 0.5
@@ -99,5 +100,6 @@ def apply_chunked(fn, tiles_u8: np.ndarray, *, device, chunk: int = 64,
     for start, part in loader.staged_chunks(tiles_u8, chunk,
                                             torch.device(device)):
         rows = [x[start:start + part.shape[0]] for x in per_tile or ()]
-        outs.append(fn(part, *rows, **kwargs))
+        with profiling.annotate("port.transform"):
+            outs.append(fn(part, *rows, **kwargs))
     return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]

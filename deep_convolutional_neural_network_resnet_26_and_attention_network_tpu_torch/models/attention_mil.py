@@ -51,6 +51,7 @@ from ..ops.collectives import all_reduce_
 from ..ops import init as I
 from ..ops import loss as L
 from ..ops import nn as N
+from ..utils import profiling
 from . import resnet
 
 
@@ -197,43 +198,49 @@ def attention_pool(model, H, cfg: MILConfig, *, mask=None, keep=None,
     detached all-reduce after the pool (:func:`_group_diagnostics`).
     ``diagnostics=False`` leaves the metrics out (the sharded pool's
     outputs are the logits, ``Mterm`` and ``Aterm``)."""
-    count = None if group is None else N.tile_count(H, mask, group)
-    Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
-                             model.context.bn.bias, mask=mask, group=group,
-                             count=count)
-    Hm0 = N.leaky_relu(H)
-    if keep is not None:
-        Hm0 = N.dropout(Hm0, cfg.dropout, keep.to(Hm0.device), train=True)
+    with profiling.annotate("port.pool"):
+        count = None if group is None else N.tile_count(H, mask, group)
+        Hz0 = N.batch_norm_tiles(H, model.context.bn.weight,
+                                 model.context.bn.bias, mask=mask,
+                                 group=group, count=count)
+        Hm0 = N.leaky_relu(H)
+        if keep is not None:
+            Hm0 = N.dropout(Hm0, cfg.dropout, keep.to(Hm0.device),
+                            train=True)
 
-    a, b = model.attention, model.buffer
-    A_raw = _lin(torch.tanh(_lin(Hz0, a["lin1"])), a["lin2"])      # [T, K]
-    Bterm = _lin(N.leaky_relu(_lin(Hm0, b["lin1"])), b["classifier"])  # [T, O]
-    wm = model.weight_mask
+        a, b = model.attention, model.buffer
+        A_raw = _lin(torch.tanh(_lin(Hz0, a["lin1"])), a["lin2"])  # [T, K]
+        Bterm = _lin(N.leaky_relu(_lin(Hm0, b["lin1"])),
+                     b["classifier"])                              # [T, O]
+        wm = model.weight_mask
 
-    m_vec = (mask if mask is not None
-             else torch.ones(A_raw.shape[0], device=A_raw.device))
-    pool_args = (A_raw.float().contiguous(), Bterm.float().contiguous(),
-                 m_vec.float().contiguous(), wm.float().contiguous())
-    if group is None:
-        Mterm, A_1T, wROIs = gated_pool.gated_attention_pool(*pool_args)
-    else:
-        Mterm, A_1T, wROIs = gated_pool.sharded_gated_attention_pool(
-            *pool_args, group)
+        m_vec = (mask if mask is not None
+                 else torch.ones(A_raw.shape[0], device=A_raw.device))
+        pool_args = (A_raw.float().contiguous(), Bterm.float().contiguous(),
+                     m_vec.float().contiguous(), wm.float().contiguous())
+        if group is None:
+            Mterm, A_1T, wROIs = gated_pool.gated_attention_pool(*pool_args)
+        else:
+            Mterm, A_1T, wROIs = gated_pool.sharded_gated_attention_pool(
+                *pool_args, group)
 
-    out = {"Aterm": A_1T, "wROIs": wROIs, "Bterm": Bterm, "Mterm": Mterm}
-    if diagnostics and group is None:
-        # Decorrelation + mean diagnostics (reference: gbm/model.py:216-219)
-        A_raw_m = A_raw * mask[:, None].to(A_raw.dtype) if mask is not None \
-            else A_raw
-        A_2 = N.l2_normalize(A_raw_m, axis=0)                      # [T, K]
-        off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype, device=A_2.device)
-        out["Aterm_mu"] = 0.5 * (N.masked_mean(A_raw, mask, axis=0)
-                                 ** 2).sum()
-        out["Aterm_var"] = ((A_2.T @ A_2) * off_diag).mean()
-    elif diagnostics:
-        out.update(_group_diagnostics(H, A_raw, mask, count, group, cfg.K))
-    out["logits"] = Mterm.reshape(1, cfg.K * cfg.O)                # [1, K]
-    return out
+        out = {"Aterm": A_1T, "wROIs": wROIs, "Bterm": Bterm, "Mterm": Mterm}
+        if diagnostics and group is None:
+            # Decorrelation + mean diagnostics
+            # (reference: gbm/model.py:216-219)
+            A_raw_m = (A_raw * mask[:, None].to(A_raw.dtype)
+                       if mask is not None else A_raw)
+            A_2 = N.l2_normalize(A_raw_m, axis=0)                  # [T, K]
+            off_diag = 1.0 - torch.eye(cfg.K, dtype=A_2.dtype,
+                                       device=A_2.device)
+            out["Aterm_mu"] = 0.5 * (N.masked_mean(A_raw, mask, axis=0)
+                                     ** 2).sum()
+            out["Aterm_var"] = ((A_2.T @ A_2) * off_diag).mean()
+        elif diagnostics:
+            out.update(_group_diagnostics(H, A_raw, mask, count, group,
+                                          cfg.K))
+        out["logits"] = Mterm.reshape(1, cfg.K * cfg.O)            # [1, K]
+        return out
 
 
 def _group_diagnostics(H, A_raw, mask, count, group, K):
@@ -312,12 +319,13 @@ def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
                  remat, extractor=None, group=None):
     # the CNN input carries no gradient, like the reference's .detach()
     # (reference: gbm/model.py:194)
-    if extractor is not None:
-        H = extractor(model.cnn, tiles.detach()).float()          # [T, L]
-    else:
-        H = resnet.apply_resnet26(model.cnn, tiles.detach(),
-                                  compute_dtype=compute_dtype, stem=cfg.stem,
-                                  remat=remat).float()            # [T, L]
+    with profiling.annotate("port.extract"):
+        if extractor is not None:
+            H = extractor(model.cnn, tiles.detach()).float()      # [T, L]
+        else:
+            H = resnet.apply_resnet26(
+                model.cnn, tiles.detach(), compute_dtype=compute_dtype,
+                stem=cfg.stem, remat=remat).float()               # [T, L]
     pooled = attention_pool(model, H, cfg, mask=mask, keep=keep, group=group)
     KLD = (0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
            if group is None else pooled["KLD"])

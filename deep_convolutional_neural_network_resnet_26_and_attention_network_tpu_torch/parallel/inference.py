@@ -33,6 +33,7 @@ from ..models import attention_mil as amil
 from ..models import resnet
 from ..ops import loss as L
 from ..ops.collectives import all_gather_cat, alone
+from ..utils import profiling
 from . import mesh as M
 
 
@@ -115,36 +116,39 @@ def classify_slide_streaming(model, cfg: amil.MILConfig, builder, *,
     its share, the features are gathered onto every rank and each pools
     the whole [T, L] matrix once. A slide whose reading or extraction
     fails on one rank raises on every rank, before any of them gathers."""
-    extract = (transform_extract if transform_extract is not None
-               else make_transform_extract(cfg, resolution=resolution,
-                                           compute_dtype=compute_dtype))
+    profiling.count("stream.slides")
+    with profiling.annotate("port.slide"):
+        extract = (transform_extract if transform_extract is not None
+                   else make_transform_extract(cfg, resolution=resolution,
+                                               compute_dtype=compute_dtype))
 
-    def local():
-        _serving_device(model, builder)
-        if builder.params.get("resolution") != resolution:
-            builder.update_resolution_and_buffer(resolution)
-        return _streamed_rows(model, cfg, builder, chunk, extract, mesh)
+        def local():
+            _serving_device(model, builder)
+            if builder.params.get("resolution") != resolution:
+                builder.update_resolution_and_buffer(resolution)
+            return _streamed_rows(model, cfg, builder, chunk, extract, mesh)
 
-    # the extraction runs no collective: on a mesh a slide that fails on
-    # one rank fails on all of them before the gather
-    T, coords, step, rows = (
-        local() if mesh is None else M.run_together(
-            local, mesh, what="streaming a slide", agree_on=lambda r: r[0]))
-    if T == 0:
-        # a tile-less slide goes through the one-pass forward, whose
-        # fallback is the post-transform f32 zero bag (RoiBuilder._empty_bag)
-        # that validation feeds too
-        return classify_slide(model, cfg, builder, resolution=resolution,
-                              compute_dtype=compute_dtype)
-    if mesh is None:
-        H = rows[:T]
-    else:
-        # rank r's row j of chunk c is row c * step + r * share + j
-        H = all_gather_cat(rows, mesh.world_group).reshape(
-            mesh.size, -1, step // mesh.size, cfg.L).transpose(0, 1).reshape(
-                -1, cfg.L)[:T]
-    probs, outs = _pool_outputs(model, H, cfg)
-    return probs.ravel(), outs, coords
+        # the extraction runs no collective: on a mesh a slide that fails on
+        # one rank fails on all of them before the gather
+        T, coords, step, rows = (
+            local() if mesh is None else M.run_together(
+                local, mesh, what="streaming a slide",
+                agree_on=lambda r: r[0]))
+        if T == 0:
+            # a tile-less slide goes through the one-pass forward, whose
+            # fallback is the post-transform f32 zero bag
+            # (RoiBuilder._empty_bag) that validation feeds too
+            return classify_slide(model, cfg, builder, resolution=resolution,
+                                  compute_dtype=compute_dtype)
+        if mesh is None:
+            H = rows[:T]
+        else:
+            # rank r's row j of chunk c is row c * step + r * share + j
+            H = all_gather_cat(rows, mesh.world_group).reshape(
+                mesh.size, -1, step // mesh.size, cfg.L).transpose(
+                    0, 1).reshape(-1, cfg.L)[:T]
+        probs, outs = _pool_outputs(model, H, cfg)
+        return probs.ravel(), outs, coords
 
 
 def _streamed_rows(model, cfg, builder, chunk, extract, mesh):
@@ -168,7 +172,8 @@ def _streamed_rows(model, cfg, builder, chunk, extract, mesh):
                        device=device)
     for lo, part in staged_chunks(raw, step, device, rank=rank, ranks=n):
         at = lo // step * share
-        rows[at:at + part.shape[0]] = extract(model.cnn, part)
+        with profiling.annotate("port.extract"):
+            rows[at:at + part.shape[0]] = extract(model.cnn, part)
     return T, coords, step, rows
 
 
@@ -176,13 +181,15 @@ def _pool_outputs(model, H, cfg, *, mask=None, group=None):
     """Pool the [T, L] features of one slide (this rank's rows of it with
     ``group``): (probs [1, C], host outputs with ``y_pred``, ``y_pred_hat``
     and ``Fterm``)."""
-    pooled = {k: _host(v) for k, v in amil.attention_pool(
-        model, H, cfg, mask=mask, group=group).items()}
+    pooled = amil.attention_pool(model, H, cfg, mask=mask, group=group)
+    with profiling.annotate("port.home"):
+        pooled = {k: _host(v) for k, v in pooled.items()}
+        features = _host(H)
     z = pooled["logits"].astype(np.float32)
     z = np.exp(z - z.max(axis=1, keepdims=True))
     probs = z / z.sum(axis=1, keepdims=True)
     return probs, {**pooled, "y_pred": probs, "y_pred_hat": np.argmax(probs),
-                   "Fterm": _host(H)}
+                   "Fterm": features}
 
 
 def make_batched_infer(cfg: amil.MILConfig, *, mesh=None,

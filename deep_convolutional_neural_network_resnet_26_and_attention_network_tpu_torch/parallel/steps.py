@@ -26,6 +26,7 @@ import torch
 
 from ..models import attention_mil as amil
 from ..ops.collectives import all_reduce_
+from ..utils import profiling
 from . import mesh as M
 
 ADAM_BETAS = (0.9, 0.999)
@@ -66,13 +67,14 @@ def apply_updates(optimizer, lr: float):
     gbm/classify_combined.py:450-454), then clear the gradients. A
     parameter without a gradient steps with a zero one, as optax updates
     every leaf: its moments decay and its step count advances."""
-    for group in optimizer.param_groups:
-        group["lr"] = float(lr) * group.get("lr_mult", 1.0)
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
+    with profiling.annotate("port.adam"):
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr) * group.get("lr_mult", 1.0)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
 
 
 def make_bag_grad(cfg: amil.MILConfig, *, compute_dtype=None):
@@ -82,12 +84,10 @@ def make_bag_grad(cfg: amil.MILConfig, *, compute_dtype=None):
     (gbm/classify_combined.py:446-447): the bag's gradient is added to each
     parameter's ``.grad``. The outputs are detached."""
 
-    def grad_fn(model, tiles, mask, label, generator=None, **noise):
-        outs = amil.apply_attention_mil(
-            model, tiles, label, cfg, mask=mask, train=True,
-            generator=generator, compute_dtype=compute_dtype, **noise)
-        outs["loss"].backward()
-        return {**outs, "loss": outs["loss"].detach()}
+    def grad_fn(model, tiles, mask, label, generator=None, *, scores=None,
+                keep=None):
+        return _train_bag(model, cfg, None, tiles, mask, label, 1.0,
+                          (generator, scores, keep), compute_dtype)
 
     return grad_fn
 
@@ -166,34 +166,36 @@ def _train_bag(model, cfg, mesh, tiles, mask, label, weight, noise,
     the backward of its loss. ``noise`` is a generator or the injected
     ``(scores [T], keep [k, L])``. Returns the detached outputs."""
     generator, scores, keep = noise
-    if mesh is None:
-        with torch.set_grad_enabled(weight > 0):
-            outs = amil.apply_attention_mil(
-                model, tiles, label, cfg, mask=mask, train=True,
-                generator=generator, scores=scores, keep=keep,
-                compute_dtype=compute_dtype)
-    else:
-        # the subsample is a top-k over the whole bag: every rank of the
-        # tile axis takes it on the host from the same scores, then keeps
-        # its share of the chosen tiles
-        if scores is None:
-            scores = amil.gumbel_scores(generator, tiles.shape[0])
-        idx, sub_mask = amil.subsample_index(mask.cpu(),
-                                             cfg.train_tile_fraction,
-                                             scores.cpu())
-        if keep is None and cfg.dropout > 0.0:
-            keep = amil.dropout_keep(generator, (idx.shape[0], cfg.L),
-                                     cfg.dropout)
-        part, part_mask, part_keep = _split_bag(mesh, tiles, idx, sub_mask,
-                                                keep, cfg.L)
-        with torch.set_grad_enabled(weight > 0):
-            outs = amil._bag_forward(
-                model, part, label, cfg, part_mask, part_keep, compute_dtype,
-                remat=cfg.remat, group=mesh.tiles_group)
+    with profiling.annotate("port.bag"):
+        if mesh is None:
+            with torch.set_grad_enabled(weight > 0):
+                outs = amil.apply_attention_mil(
+                    model, tiles, label, cfg, mask=mask, train=True,
+                    generator=generator, scores=scores, keep=keep,
+                    compute_dtype=compute_dtype)
+        else:
+            # the subsample is a top-k over the whole bag: every rank of the
+            # tile axis takes it on the host from the same scores, then keeps
+            # its share of the chosen tiles
+            if scores is None:
+                scores = amil.gumbel_scores(generator, tiles.shape[0])
+            idx, sub_mask = amil.subsample_index(mask.cpu(),
+                                                 cfg.train_tile_fraction,
+                                                 scores.cpu())
+            if keep is None and cfg.dropout > 0.0:
+                keep = amil.dropout_keep(generator, (idx.shape[0], cfg.L),
+                                         cfg.dropout)
+            part, part_mask, part_keep = _split_bag(
+                mesh, tiles, idx, sub_mask, keep, cfg.L)
+            with torch.set_grad_enabled(weight > 0):
+                outs = amil._bag_forward(
+                    model, part, label, cfg, part_mask, part_keep,
+                    compute_dtype, remat=cfg.remat, group=mesh.tiles_group)
     if weight > 0:
         # the tile ranks of a bag hold the same loss; the pool's backward
         # takes dM as it is (ops/gated_pool.py), so no rank scales it
-        (outs["loss"] * weight).backward()
+        with profiling.annotate("port.backward"):
+            (outs["loss"] * weight).backward()
     return {k: v.detach() for k, v in outs.items()}
 
 
@@ -242,39 +244,41 @@ def make_train_step(cfg: amil.MILConfig, *, mesh=None, compute_dtype=None):
 
     def step(model, optimizer, tiles, masks, labels, lr, *, bag_weights=None,
              generators=None, scores=None, keep=None):
-        B = len(tiles)
-        weights = (torch.ones(B) if bag_weights is None
-                   else torch.as_tensor(bag_weights, dtype=torch.float32))
-        mine = range(B) if mesh is None else mesh.bags(B)
-        device = model.weight_mask.device if mesh is None else mesh.device
-        width = len(_SCALARS) + cfg.n_classes + 1
-        rows = torch.zeros((B, width), dtype=torch.float32, device=device)
-        for b in mine:
-            noise = ((generators[b], None, None) if scores is None
-                     else (None, scores[b],
-                           None if keep is None else keep[b]))
-            outs = _train_bag(model, cfg, mesh, tiles[b], masks[b],
-                              int(labels[b]), float(weights[b]), noise,
-                              compute_dtype)
-            if mesh is None or mesh.tile == 0:
-                rows[b] = torch.cat(
-                    [torch.stack([outs[k].float().reshape(())
-                                  for k in _SCALARS]),
-                     outs["y_pred"].float().reshape(-1),
-                     outs["y_pred_hat"].float().reshape(1)])
-        if mesh is not None:
-            sync_grads(model, mesh)
-            all_reduce_(rows, mesh.world_group)
-        apply_updates(optimizer, lr)
-        rows = rows.cpu()
-        denom = torch.clamp_min(weights.sum(), 1.0)
-        metrics = {k: (rows[:, i] * weights).sum() / denom
-                   for i, k in enumerate(_SCALARS)}
-        n = len(_SCALARS)
-        metrics["y_pred"] = rows[:, n:n + cfg.n_classes].reshape(B, 1, -1)
-        metrics["y_pred_hat"] = torch.where(
-            weights > 0, rows[:, -1].long(), torch.full((B,), -1))
-        return metrics
+        with profiling.annotate("port.window_step"):
+            B = len(tiles)
+            weights = (torch.ones(B) if bag_weights is None
+                       else torch.as_tensor(bag_weights, dtype=torch.float32))
+            mine = range(B) if mesh is None else mesh.bags(B)
+            device = model.weight_mask.device if mesh is None else mesh.device
+            width = len(_SCALARS) + cfg.n_classes + 1
+            rows = torch.zeros((B, width), dtype=torch.float32, device=device)
+            for b in mine:
+                noise = ((generators[b], None, None) if scores is None
+                         else (None, scores[b],
+                               None if keep is None else keep[b]))
+                outs = _train_bag(model, cfg, mesh, tiles[b], masks[b],
+                                  int(labels[b]), float(weights[b]), noise,
+                                  compute_dtype)
+                if mesh is None or mesh.tile == 0:
+                    rows[b] = torch.cat(
+                        [torch.stack([outs[k].float().reshape(())
+                                      for k in _SCALARS]),
+                         outs["y_pred"].float().reshape(-1),
+                         outs["y_pred_hat"].float().reshape(1)])
+            if mesh is not None:
+                sync_grads(model, mesh)
+                all_reduce_(rows, mesh.world_group)
+            apply_updates(optimizer, lr)
+            with profiling.annotate("port.home"):
+                rows = rows.cpu()
+            denom = torch.clamp_min(weights.sum(), 1.0)
+            metrics = {k: (rows[:, i] * weights).sum() / denom
+                       for i, k in enumerate(_SCALARS)}
+            n = len(_SCALARS)
+            metrics["y_pred"] = rows[:, n:n + cfg.n_classes].reshape(B, 1, -1)
+            metrics["y_pred_hat"] = torch.where(
+                weights > 0, rows[:, -1].long(), torch.full((B,), -1))
+            return metrics
 
     return step
 

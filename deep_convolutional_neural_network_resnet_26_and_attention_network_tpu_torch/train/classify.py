@@ -339,27 +339,35 @@ class Driver:
         n = 0
         t0 = time.time()
         timer = profiling.StepTimer() if self.args.profile else None
-        for tiles, mask, label in loader:
-            with (timer.step() if timer is not None
-                  else contextlib.nullcontext()):
-                outs = self.grad_fn(self.model, tiles, mask, label,
-                                    self.bag_generator(epoch, n))
-                batch_count += 1
-                if batch_count >= self.args.accum:
-                    steps.apply_updates(self.optimizer, stage.lr)
-                    batch_count = 0
-                if timer is not None and self.device.type == "cuda":
-                    # a step's time is the card's, not the enqueue's
-                    torch.cuda.synchronize(self.device)
-            for k in keys:
-                dev_metrics[k].append(outs[k])
-            labels.append(label)
-            n += 1
-        if batch_count:
-            # a partial tail window steps too, rather than dropping its
-            # gradients (the reference's un-zeroed .grad buffers carried
-            # them into the next epoch; see PARITY.md)
-            steps.apply_updates(self.optimizer, stage.lr)
+        # a trace shows each accumulation window as one span, from its
+        # first bag through the loader's waits to its Adam step
+        with contextlib.ExitStack() as window:
+            for tiles, mask, label in loader:
+                if batch_count == 0:
+                    window.enter_context(
+                        profiling.annotate("port.window_step"))
+                with (timer.step() if timer is not None
+                      else contextlib.nullcontext()):
+                    outs = self.grad_fn(self.model, tiles, mask, label,
+                                        self.bag_generator(epoch, n))
+                    batch_count += 1
+                    if batch_count >= self.args.accum:
+                        steps.apply_updates(self.optimizer, stage.lr)
+                        batch_count = 0
+                    if timer is not None and self.device.type == "cuda":
+                        # a step's time is the card's, not the enqueue's
+                        torch.cuda.synchronize(self.device)
+                if batch_count == 0:
+                    window.close()
+                for k in keys:
+                    dev_metrics[k].append(outs[k])
+                labels.append(label)
+                n += 1
+            if batch_count:
+                # a partial tail window steps too, rather than dropping its
+                # gradients (the reference's un-zeroed .grad buffers
+                # carried them into the next epoch; see PARITY.md)
+                steps.apply_updates(self.optimizer, stage.lr)
         if timer is not None:
             epoch_stats["step_times"] = timer.summary()
         epoch_stats["input_stall_fraction"] = loader.stall_fraction()

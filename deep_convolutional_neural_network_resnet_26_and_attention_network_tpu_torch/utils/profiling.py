@@ -6,40 +6,81 @@ Counterpart of ``utils/profiling.py`` in the JAX package, on
   * ``trace(logdir, device=...)``: a context manager that records host
     activity, and the card's kernels and copies when ``device`` is a CUDA
     device, and writes a Chrome trace (``trace_<pid>_<ns>.json``, viewable
-    in Perfetto or ``chrome://tracing``) under ``logdir``;
-  * ``annotate(name)``: a named span inside a trace;
+    in Perfetto or ``chrome://tracing``) and the counters it recorded
+    (``counters_<pid>_<ns>.json``) under ``logdir``;
+  * ``annotate(name)``: a named span inside a trace, on the profiler's own
+    clock (a ``record_function`` user annotation beside the card's
+    records), and a shared no-op while no profiler records;
+  * ``count(name, n)``, ``counters()``, ``reset_counters()``: process-wide
+    counters that add up only while a profiler records;
   * ``StepTimer``: wall-clock per-step timing with warm-up skip and a
-    percentile summary (the train loop's heartbeat), as in the JAX package;
-  * ``memory_stats()``: each card's allocator counters in bytes.
+    percentile summary (the train loop's heartbeat), as in the JAX package.
+
+The port's spans (``port.*``) and counters mark its layer boundaries:
+staging, the transform, the extractor, the pool, the copies home and the
+training window (PERF.md names each and the metric that reads it).
 """
 
 import contextlib
+import json
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS = {}
+_COUNTS_LOCK = threading.Lock()
+
 
 @contextlib.contextmanager
 def trace(logdir: str, *, device=None):
     """Profile the block and write its Chrome trace under ``logdir``: host
     activity always, the card's activity too when ``device`` (a
-    ``torch.device`` or its name) is a CUDA device."""
+    ``torch.device`` or its name) is a CUDA device. The counters start at
+    zero and are written beside the trace on exit."""
     activities = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    reset_counters()
     with profile(activities=activities) as prof:
         yield logdir
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    stamp = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{stamp}.json"))
+    with open(os.path.join(logdir, f"counters_{stamp}.json"), "w") as f:
+        json.dump(counters(), f, indent=1, sort_keys=True)
 
 
 def annotate(name: str):
-    """Named span inside a trace (``torch.profiler.record_function``)."""
+    """Named span inside a trace (``torch.profiler.record_function``) while
+    a profiler records on this thread; otherwise one shared no-op context,
+    so that a span on the hot path costs one check."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return record_function(name)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` while a profiler records on this
+    thread; otherwise nothing."""
+    if torch.autograd._profiler_enabled():
+        with _COUNTS_LOCK:
+            _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of the counters' totals."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_counters():
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 class StepTimer:
@@ -72,13 +113,3 @@ class StepTimer:
             "total_s": float(arr.sum()),
         }
 
-
-def memory_stats() -> dict:
-    """Per card, the caching allocator's counters whose name holds
-    ``bytes`` (``torch.cuda.memory_stats``); empty without a card."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": {k: int(v)
-                          for k, v in torch.cuda.memory_stats(i).items()
-                          if "bytes" in k}
-            for i in range(torch.cuda.device_count())}

@@ -2,7 +2,8 @@
 ``--profile`` / ``--tensorboard`` flags, on the CPU.
 
 ``StepTimer`` against the JAX package's on one patched clock; the trainer
-CLI's ``--profile`` (a trace under ``<run>/profile/`` and ``step_times``
+CLI's ``--profile`` (a trace, with the port's window spans, and its
+counters file under ``<run>/profile/``, and ``step_times``
 of at least one step in the epoch's summary, as
 ``test_train_stack.py::test_classify_cli_profile_flag`` asks of the JAX
 CLI); ``EpochWriter``'s flattening against JAX's, its event files, and the
@@ -59,12 +60,12 @@ def test_trace_writes_a_chrome_trace_with_spans(tmp_path):
     with profiling.trace(str(tmp_path / "p"), device="cpu"):
         with profiling.annotate("my_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(tmp_path / "p")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "p" / files[0]) as f:
+    files = sorted(os.listdir(tmp_path / "p"))
+    assert len(files) == 2 and files[1].startswith("trace_")
+    assert all(f.endswith(".json") for f in files)
+    with open(tmp_path / "p" / files[1]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "my_span" for e in events)
-    assert profiling.memory_stats() == {}  # no card here
 
 
 def test_cli_profile_flag_traces_the_first_epoch(tree):  # noqa: F811
@@ -73,6 +74,11 @@ def test_cli_profile_flag_traces_the_first_epoch(tree):  # noqa: F811
     run = tree / "runs" / "run_PROF"
     prof = run / "profile"
     assert prof.is_dir() and any(prof.rglob("*.json"))
+    (trace,) = prof.glob("trace_*.json")
+    assert (prof / trace.name.replace("trace_", "counters_", 1)).is_file()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "port.window_step" for e in events)
     with open(run / "0000summary.json") as f:
         stats = json.load(f)
     assert stats["step_times"]["steps"] >= 1
