@@ -5,7 +5,8 @@ Counterpart of ``data/loader.py`` in the JAX package: ``bucket_for`` /
 ``prefetch_iter`` (the serving daemon's ``--io_depth`` pipeline),
 ``BagPrefetcher`` / ``sample_data`` (the trainer's bag loader, with its
 stall statistics) and ``epoch_loader_seed``; plus ``staged_chunks``, the
-port's host-to-card path for tile stacks. The model threads the mask
+port's host-to-card path for tile stacks, and ``fill``, its copy into a
+pinned buffer split across host threads. The model threads the mask
 through every tile reduction, so padded execution is numerically the
 ragged original. The JAX package pads to keep its compiled-program cache
 small; PyTorch runs eagerly, so serving and training here run each bag at
@@ -17,6 +18,7 @@ import math
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -27,6 +29,14 @@ DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 2560)
 # bags the trainer's loader prepares ahead (the JAX package's measured
 # depth: 2 stalled its device 21.5 % of a step, 4 measured 0.9 %)
 PREFETCH_DEPTH = 4
+# a pinned buffer's fill is split into contiguous slices, one a thread of
+# torch.get_num_threads(), only where each slice holds at least this many
+# bytes: on the H100 hosts slices of 35 MB or more copied faster split,
+# those of 4-17 MB as often slower (PERF.md §6: the staging sweep)
+FILL_SLICE_MIN_BYTES = 16 << 20
+
+_FILL_POOL = None
+_FILL_POOL_LOCK = threading.Lock()
 
 
 def bucket_for(n: int, buckets=DEFAULT_BUCKETS, multiple_of: int = 1) -> int:
@@ -232,6 +242,52 @@ def sample_data(dataset, *, image_size: int | None = None,
     return BagPrefetcher(dataset, shuffle=shuffle, **kwargs)
 
 
+def _fill_pool() -> ThreadPoolExecutor:
+    """The module's fill threads, shared by every caller in the process,
+    so that concurrent producers do not multiply them: made on first use
+    with ``torch.get_num_threads()`` less one (the caller's) threads."""
+    global _FILL_POOL
+    with _FILL_POOL_LOCK:
+        if _FILL_POOL is None:
+            _FILL_POOL = ThreadPoolExecutor(
+                max_workers=max(1, torch.get_num_threads() - 1),
+                thread_name_prefix="stage-fill")
+        return _FILL_POOL
+
+
+def fill_slices(n: int, row_bytes: int) -> list[int]:
+    """Row bounds ``[0, ..., n]`` of the contiguous slices a fill of ``n``
+    rows of ``row_bytes`` each is split into: one a thread of
+    ``torch.get_num_threads()``, as long as each slice holds at least
+    ``FILL_SLICE_MIN_BYTES``; ``[0, n]`` (one copy) otherwise."""
+    min_rows = max(1, -(-FILL_SLICE_MIN_BYTES // max(1, row_bytes)))
+    parts = max(1, min(torch.get_num_threads(), n // min_rows))
+    return [n * i // parts for i in range(parts + 1)]
+
+
+def fill(dst: np.ndarray, src):
+    """``np.copyto(dst, src)`` over the first axis, in the slices of
+    :func:`fill_slices`: the calling thread copies the first, the fill pool
+    the others (``np.copyto`` releases the interpreter lock for uint8
+    copies). A split fill adds its rows to the counter
+    ``stage.split_tiles``."""
+    n = dst.shape[0]
+    bounds = fill_slices(n, dst.nbytes // n if n else 0)
+    if len(bounds) == 2:
+        np.copyto(dst, src)
+        return
+    pool = _fill_pool()
+    futures = [pool.submit(np.copyto, dst[a:b], src[a:b])
+               for a, b in zip(bounds[1:-1], bounds[2:])]
+    try:
+        np.copyto(dst[:bounds[1]], src[:bounds[1]])
+    finally:
+        wait(futures)
+    for f in futures:
+        f.result()
+    profiling.count("stage.split_tiles", n)
+
+
 def staged_chunks(raw, chunk: int, device, *, rank: int = 0,
                   ranks: int = 1):
     """Yield ``(start, uint8 chunk on device)`` over the host uint8 tile
@@ -244,12 +300,13 @@ def staged_chunks(raw, chunk: int, device, *, rank: int = 0,
     end of the stack (a share past it is skipped).
 
     On CUDA each share is copied into one of two reused pinned host
-    buffers, so that its copy to the card is an asynchronous DMA that
-    overlaps the work on the previous one; a buffer is refilled only once
-    its last copy to the card has finished. A fresh host array per chunk
+    buffers (one where there is one share), so that its copy to the card
+    is an asynchronous DMA that overlaps the work on the previous one; a
+    buffer is refilled only once its last copy to the card has finished. A fresh host array per chunk
     would page-fault on every page it fills, which cost more than the copy
-    itself on the H100 host (PERF.md). On the CPU each share is its
-    own copy."""
+    itself on the H100 host (PERF.md). A buffer's fill is split across
+    host threads where the share is large enough (:func:`fill`). On the
+    CPU each share is its own copy."""
     if raw.dtype != np.uint8:
         raise TypeError(f"expected a uint8 tile stack, got {raw.dtype}")
     if chunk % ranks:
@@ -268,7 +325,7 @@ def staged_chunks(raw, chunk: int, device, *, rank: int = 0,
     shape = (min(share, T),) + tuple(raw.shape[1:])
     with profiling.annotate("port.stage.pin"):
         bufs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-                for _ in range(2)]
+                for _ in range(min(2, len(spans)))]
     copied = [None, None]
     # each span closes before the yield: the caller's work on a chunk is
     # not the staging's
@@ -278,7 +335,7 @@ def staged_chunks(raw, chunk: int, device, *, rank: int = 0,
             with profiling.annotate("port.stage.wait"):
                 copied[k].synchronize()
         with profiling.annotate("port.stage.fill"):
-            np.copyto(bufs[k].numpy()[:n], raw[lo:hi])
+            fill(bufs[k].numpy()[:n], raw[lo:hi])
             part = bufs[k][:n].to(device, non_blocking=True)
             copied[k] = torch.cuda.Event()
             copied[k].record(torch.cuda.current_stream(device))

@@ -26,6 +26,12 @@ from . import loader
 
 MEAN = 0.5
 STD = 0.5
+# uint8 bytes of the chunk apply_chunked stages and transforms at once when
+# its caller names no chunk: about 1,000 tiles at 300 px, 5,000 at 128 px;
+# never fewer than MIN_CHUNK tiles (PERF.md §6: the staging sweep, where
+# chunks of 512-2048 tiles filled fastest and 64 slowest)
+CHUNK_BYTES = 256 << 20
+MIN_CHUNK = 64
 
 
 def _normalize(x_f32_01):
@@ -84,18 +90,33 @@ def train_transform(tiles_u8, offsets, flip_h, flip_v, *, roi_size: int,
     return _normalize(_resize_bilinear(x, resolution)).contiguous()
 
 
-def apply_chunked(fn, tiles_u8: np.ndarray, *, device, chunk: int = 64,
+def default_chunk(tiles_u8) -> int:
+    """The chunk :func:`apply_chunked` takes for ``tiles_u8`` when its
+    caller names none: ``CHUNK_BYTES`` of tiles, at least ``MIN_CHUNK``
+    and at most the whole stack."""
+    T = tiles_u8.shape[0]
+    tile_bytes = max(1, tiles_u8[:1].nbytes)
+    return min(T, max(MIN_CHUNK, CHUNK_BYTES // tile_bytes))
+
+
+def apply_chunked(fn, tiles_u8: np.ndarray, *, device,
+                  chunk: int | None = None,
                   per_tile=None, **kwargs) -> torch.Tensor:
     """Run a transform over a large host stack (an array or a memory map)
-    in chunks of ``chunk`` tiles: each chunk goes to ``device`` as uint8 (a
-    quarter of the f32 bytes) through reused pinned staging
+    in chunks of ``chunk`` tiles (by default :func:`default_chunk`: about
+    256 MB of uint8 tiles, 1,000 at 300 px): each chunk goes to ``device``
+    as uint8 (a quarter of the f32 bytes) through reused pinned staging
     (``loader.staged_chunks``), transforms there, and the results are
     concatenated on the device. Peak memory for the transform's
-    intermediates stays at one chunk. ``per_tile`` is a tuple of tensors
-    with one row a tile (a train transform's offsets and flips); each
-    chunk's rows of them go to ``fn`` as positional arguments."""
+    intermediates stays at one chunk (a few GB for 1,000 tiles at 300
+    px). The transform acts on each tile alone, so the chunk does not
+    change the result. ``per_tile`` is a tuple of tensors with one row a
+    tile (a train transform's offsets and flips); each chunk's rows of
+    them go to ``fn`` as positional arguments."""
     if tiles_u8.shape[0] == 0:
         raise ValueError("empty tile stack")
+    if chunk is None:
+        chunk = default_chunk(tiles_u8)
     outs = []
     for start, part in loader.staged_chunks(tiles_u8, chunk,
                                             torch.device(device)):
