@@ -4,6 +4,7 @@ Counterpart of ``models/attention_mil.py`` in the JAX package, after the
 reference's Attention model (reference: gbm/model.py:89-264):
 
     H  = ResNet26(tiles)                               [T, L=80]
+         (or UNI's ViT-L/16, ``models/vit.py``, where ``extractor="vit"``)
     Hm0, Hz0 = ContextLayer(H)   # lrelu branch, per-bag batchnorm branch
     A_raw = Linear(L,D) -> tanh -> Linear(D,K)          [T, K=3]
     gate:  sigmoid(-10*w) * softplus(A_raw) + sigmoid(10*w)   (learnable w, init 0.25)
@@ -52,7 +53,10 @@ from ..ops import init as I
 from ..ops import loss as L
 from ..ops import nn as N
 from ..utils import profiling
-from . import resnet
+from . import resnet, vit
+from .vit import ViTConfig
+
+EXTRACTORS = ("resnet26", "vit")
 
 
 @dataclass(frozen=True)
@@ -71,6 +75,10 @@ class MILConfig:
     class_weights: Optional[Tuple[float, ...]] = None
     widths: Tuple[int, ...] = resnet.WIDTHS
     blocks: Tuple[int, ...] = resnet.BLOCKS_PER_STAGE
+    # the tile embedder: the ResNet-26 (``widths``, ``blocks``, ``stem``) or
+    # UNI's ViT (``vit``'s sizes at width L)
+    extractor: str = "resnet26"
+    vit: ViTConfig = ViTConfig()
 
 
 class AttentionMIL(nn.Module):
@@ -83,9 +91,14 @@ class AttentionMIL(nn.Module):
     def __init__(self, cfg: MILConfig = MILConfig(), device=None):
         super().__init__()
         device = resolve_device(device)
+        if cfg.extractor not in EXTRACTORS:
+            raise ValueError(f"unknown extractor {cfg.extractor!r}; "
+                             f"one of {EXTRACTORS}")
         self.cfg = cfg
-        self.cnn = resnet.ResNet26(embed_dim=cfg.L, widths=cfg.widths,
-                                   blocks=cfg.blocks, device=device)
+        self.cnn = (vit.ViT(cfg.L, cfg.vit, device=device)
+                    if cfg.extractor == "vit" else
+                    resnet.ResNet26(embed_dim=cfg.L, widths=cfg.widths,
+                                    blocks=cfg.blocks, device=device))
         # ContextLayer BatchNorm1d without running stats: only its affine
         # parameters are used, with masked statistics (ops.nn.batch_norm_tiles)
         self.context = nn.Module()
@@ -134,6 +147,23 @@ def init_attention_mil(generator, cfg: MILConfig = MILConfig(), *,
         device=resolve_device(device))
     model.reset_parameters(generator)
     return model.eval()
+
+
+def embed(cnn, tiles, cfg: MILConfig, *, compute_dtype=None,
+          remat: bool = False):
+    """The configured tile embedder: tiles [T, H, W, 3] in [-1, 1] ->
+    float32 features [T, L]."""
+    if cfg.extractor == "vit":
+        return vit.apply_vit(cnn, tiles, compute_dtype=compute_dtype,
+                             remat=remat)
+    return resnet.apply_resnet26(cnn, tiles, compute_dtype=compute_dtype,
+                                 stem=cfg.stem, remat=remat).float()
+
+
+def input_resolution(cfg: MILConfig, resolution: int) -> int:
+    """The side the eval transform resizes tiles to for ``cfg``'s embedder:
+    the ViT's own, else ``resolution``."""
+    return cfg.vit.image if cfg.extractor == "vit" else resolution
 
 
 def _lin(x, layer):
@@ -275,9 +305,10 @@ def apply_attention_mil(model, tiles, label, cfg: MILConfig = MILConfig(), *,
                         extractor=None, group=None):
     """Bag forward. tiles: [T, H, W, 3] NHWC; label: int; mask: optional
     [T] validity (1 = real tile). Returns the reference's 13-key dict.
-    ``extractor``, a ``(cnn, tiles) -> [T, L]`` function, replaces the
-    ResNet-26 as the tile embedder (the W8A8 int8 serving path,
-    ``ops.quant.make_int8_extractor``); it gets the tiles detached.
+    The tile embedder is ``cfg``'s (:func:`embed`); ``extractor``, a
+    ``(cnn, tiles) -> [T, L]`` function, replaces it (the W8A8 int8
+    serving path, ``ops.quant.make_int8_extractor``); it gets the tiles
+    detached.
 
     ``train=True`` subsamples the tiles and applies dropout, with the noise
     given (``scores`` [T] Gumbel draws, ``keep`` [k, L] boolean for the
@@ -323,9 +354,8 @@ def _bag_forward(model, tiles, label, cfg, mask, keep, compute_dtype, *,
         if extractor is not None:
             H = extractor(model.cnn, tiles.detach()).float()      # [T, L]
         else:
-            H = resnet.apply_resnet26(
-                model.cnn, tiles.detach(), compute_dtype=compute_dtype,
-                stem=cfg.stem, remat=remat).float()               # [T, L]
+            H = embed(model.cnn, tiles.detach(), cfg,
+                      compute_dtype=compute_dtype, remat=remat)   # [T, L]
     pooled = attention_pool(model, H, cfg, mask=mask, keep=keep, group=group)
     KLD = (0.5 * N.masked_mean((H ** 2).mean(dim=1), mask, axis=0)
            if group is None else pooled["KLD"])

@@ -30,7 +30,6 @@ from .._device import module_device
 from ..data import transforms
 from ..data.loader import pad_bag, staged_chunks
 from ..models import attention_mil as amil
-from ..models import resnet
 from ..ops import loss as L
 from ..ops.collectives import all_gather_cat, alone
 from ..utils import profiling
@@ -57,9 +56,11 @@ def classify_slide(model, cfg: amil.MILConfig, builder, *,
                    resolution: int = 300, compute_dtype=torch.bfloat16):
     """Full-slide pipeline in one bag forward: tile cache -> transforms ->
     features -> pooled prediction, on the model's device (which must be
-    the builder's). Returns (probs [n_classes], outputs dict of numpy
-    arrays, coords)."""
+    the builder's), whose tiles the builder resizes to ``resolution`` (the
+    ViT's own for a ViT). Returns (probs [n_classes], outputs dict of
+    numpy arrays, coords)."""
     _serving_device(model, builder)
+    resolution = amil.input_resolution(cfg, resolution)
     if builder.params.get("resolution") != resolution:
         builder.update_resolution_and_buffer(resolution)
     tiles, coords, _ = builder.get_inference_data()
@@ -73,12 +74,14 @@ def make_transform_extract(cfg: amil.MILConfig, *, resolution: int = 300,
                            compute_dtype=torch.bfloat16):
     """The default per-chunk program of the streaming path:
     ``(cnn, raw uint8 [N, H, W, 3]) -> float32 features [N, L]``, the eval
-    transform then the ResNet-26 (with ``cfg.stem``) on the chunk's
-    device."""
+    transform then ``cfg``'s embedder (``amil.embed``: the ResNet-26 with
+    ``cfg.stem`` at ``resolution``, or the ViT at its own resolution) on
+    the chunk's device."""
+    resolution = amil.input_resolution(cfg, resolution)
+
     def extract(cnn, raw_u8):
         tiles = transforms.eval_transform(raw_u8, resolution=resolution)
-        return resnet.apply_resnet26(cnn, tiles, compute_dtype=compute_dtype,
-                                     stem=cfg.stem).float()
+        return amil.embed(cnn, tiles, cfg, compute_dtype=compute_dtype)
     return extract
 
 
@@ -217,12 +220,11 @@ def make_batched_infer(cfg: amil.MILConfig, *, mesh=None,
     def embed(model, tiles):
         if transform_resolution is not None:
             tiles = transforms.eval_transform(
-                tiles, resolution=transform_resolution)
+                tiles, resolution=amil.input_resolution(
+                    cfg, transform_resolution))
         if extractor is not None:
             return extractor(model.cnn, tiles).float()
-        return resnet.apply_resnet26(model.cnn, tiles,
-                                     compute_dtype=compute_dtype,
-                                     stem=cfg.stem).float()
+        return amil.embed(model.cnn, tiles, cfg, compute_dtype=compute_dtype)
 
     def stack(rows):
         return {"y_pred": np.stack([r["y_pred"] for r in rows]),
