@@ -6,8 +6,12 @@ Counterpart of ``deploy.py`` in the JAX package, in PyTorch's idiom.
 (the ``.model`` npz that both packages read) and a JSON manifest:
 
   * ``extract.pt2``: uint8 tiles ``[N, roi, roi, 3]`` -> float32 features
-    ``[N, L]``, the eval transform then the ResNet-26 with ``cfg.stem``
-    (``parallel.inference.make_transform_extract``), N from 1 to ``chunk``;
+    ``[N, L]``, the streaming path's per-chunk program
+    (``parallel.inference.make_transform_extract``), N from 1 to ``chunk``:
+    on the card at a roi and resolution of 300 in bf16 the fused uint8
+    stem, the ``torch.library`` op of ``ops/u8_stem.py``, then the
+    ResNet-26's stages; elsewhere the eval transform then the ResNet-26
+    with ``cfg.stem``;
   * ``pool.pt2``: features ``[T, L]`` -> the head's outputs
     (``models.attention_mil.attention_pool``), T from 1 to ``tiles``. The
     gated pool in it is the ``torch.library`` op of ``ops/gated_pool.py``,
@@ -50,8 +54,8 @@ import torch
 
 from ._device import resolve_device
 from .data.loader import staged_chunks
-# registers the pool's op, which the pool program holds
-from .ops import gated_pool
+# registers the ops the programs hold: the pool's, and the uint8 stem's
+from .ops import gated_pool, u8_stem  # noqa: F401
 from .train import checkpoint
 from .utils import interop
 

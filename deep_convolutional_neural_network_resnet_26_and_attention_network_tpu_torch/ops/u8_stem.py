@@ -8,16 +8,26 @@ conv ``conv1`` (7x7, stride 2, pad 3, 3 -> 20 channels, with bias):
                                        * bf16(alpha * x[b,2i+u-3,2j+v-3,c] + beta)
 
 summed in float32, zero-padded, returned as the pre-activation float32
-NHWC ``[B, 150, 150, 20]``. :func:`stem_u8_conv` launches
-``csrc/u8_stem.cu`` for CUDA tensors and takes
-:func:`stem_u8_conv_reference` only for CPU tensors. :func:`u8_stem_extract`
-is the whole extractor on top of it, the counterpart of the composition in
-``tools/exp_stem_pallas.py``; bound with ``functools.partial`` it is a
-``transform_extract`` for ``parallel.inference.classify_slide_streaming``.
+NHWC ``[B, 150, 150, 20]``. :func:`stem_u8_conv` calls the ``torch.library``
+op ``OP`` (:func:`u8_stem_forward`): ``csrc/u8_stem.cu`` for CUDA tensors,
+:func:`stem_u8_conv_reference` for CPU tensors, shapes alone under
+``torch.export``'s fake tensors, so an exported program (``deploy.py``)
+holds the stem as one node, as it holds the gated pool. A program that
+holds the op loads only once this module has registered it.
+:func:`u8_stem_extract` is the whole extractor on top of it, the
+counterpart of the composition in ``tools/exp_stem_pallas.py``.
 
-As in the JAX package, nothing selects this stem by default: no
-``MILConfig`` field, daemon flag or ``classify_slide`` path turns it on.
-Serving only: both functions run without autograd.
+The streaming path selects it by default:
+``parallel.inference.make_transform_extract``, the per-chunk program of
+``classify_slide_streaming``, the daemon's and the bundle's, runs
+:func:`u8_stem_extract` with the eval transform's normalize
+(``alpha=2/255``, ``beta=-1``) wherever ``inference.fused_stem_applies``:
+a CUDA chunk of uint8 300 px tiles served at 300 px through the bf16
+ResNet-26. There it does the eval transform's and cuDNN's work (a float32
+pass over the tiles, a cast, cuDNN's padding of 3 channels to 8, the 7x7
+convolution) in one launch on the same bf16 operands. The JAX package
+keeps its stem opt-in. Serving only: every function here runs without
+autograd.
 """
 
 import ctypes
@@ -68,9 +78,13 @@ def stem_u8_conv_reference(conv1, x_u8, *, alpha, beta):
     in TF32). It differs from the JAX package's ``stem_u8_conv`` in one
     place: JAX rounds the conv output to bf16 before adding the bias
     (``pallas_stem.py:102, 194``); here the output stays float32."""
+    return _plain(x_u8, conv1.weight, conv1.bias, alpha, beta)
+
+
+def _plain(x_u8, weight, bias, alpha, beta):
     xn = (x_u8.float() * alpha + beta).to(torch.bfloat16).float()
-    w = conv1.weight.to(torch.bfloat16).float()
-    out = F.conv2d(xn.permute(0, 3, 1, 2), w, conv1.bias.float(), stride=2,
+    w = weight.to(torch.bfloat16).float()
+    out = F.conv2d(xn.permute(0, 3, 1, 2), w, bias.float(), stride=2,
                    padding=3)
     return out.permute(0, 2, 3, 1)
 
@@ -108,12 +122,12 @@ def _kernel():
     return fn
 
 
-def _launch(conv1, x_u8, alpha, beta):
+def _launch(x_u8, weight, bias, alpha, beta):
     global LAUNCHES
     batch = x_u8.shape[0]
     x = x_u8.contiguous()
-    w = pack_weights(conv1.weight)
-    b = conv1.bias.detach().float().contiguous()
+    w = pack_weights(weight)
+    b = bias.detach().float().contiguous()
     fn = _kernel()
     dev = x.device
     out = torch.empty((batch, OUT, OUT, C_OUT), dtype=torch.float32,
@@ -128,6 +142,34 @@ def _launch(conv1, x_u8, alpha, beta):
     return out
 
 
+# the op's namespace names the port, as the pool's does; registered once,
+# when this module is first imported
+OP = "resnet26_attention_mil_torch::u8_stem_forward"
+
+
+@torch.library.custom_op(OP, mutates_args=(), device_types="cpu")
+def u8_stem_forward(x_u8: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, alpha: float, beta: float
+                    ) -> torch.Tensor:
+    """The stem as a ``torch.library`` op: uint8 ``[B, 300, 300, 3]``, the
+    OIHW ``[20, 3, 7, 7]`` weights and ``[20]`` bias -> float32 NHWC
+    ``[B, 150, 150, 20]``. On the CPU the plain version, made contiguous
+    as the kernel's output is. Its caller checks the arguments
+    (:func:`stem_u8_conv`)."""
+    return _plain(x_u8, weight, bias, alpha, beta).contiguous()
+
+
+@u8_stem_forward.register_kernel("cuda")
+def _u8_stem_forward_cuda(x_u8, weight, bias, alpha, beta):
+    return _launch(x_u8, weight, bias, alpha, beta)
+
+
+@u8_stem_forward.register_fake
+def _u8_stem_forward_fake(x_u8, weight, bias, alpha, beta):
+    return x_u8.new_empty((x_u8.shape[0], OUT, OUT, C_OUT),
+                          dtype=torch.float32)
+
+
 @torch.no_grad()
 def stem_u8_conv(conv1, x_u8, *, alpha, beta):
     """Fused uint8 -> normalize ``x * alpha + beta`` -> conv 7x7/s2/p3 +
@@ -135,13 +177,12 @@ def stem_u8_conv(conv1, x_u8, *, alpha, beta):
     [B, 300, 300, 3]. Returns the pre-activation float32 NHWC
     [B, 150, 150, 20] (a ``channels_last`` NCHW tensor once permuted).
     CUDA tensors go through the kernel (or raise); CPU tensors through the
-    plain version."""
+    plain version; both through the op ``OP``."""
     device = _check(conv1, x_u8)
-    if device.type == "cuda":
-        return _launch(conv1, x_u8, alpha, beta)
-    if device.type == "cpu":
-        return stem_u8_conv_reference(conv1, x_u8, alpha=alpha, beta=beta)
-    raise ValueError(f"unsupported device {device}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return u8_stem_forward(x_u8, conv1.weight, conv1.bias, float(alpha),
+                           float(beta))
 
 
 @torch.no_grad()

@@ -31,6 +31,7 @@ from ..data import transforms
 from ..data.loader import pad_bag, staged_chunks
 from ..models import attention_mil as amil
 from ..ops import loss as L
+from ..ops import u8_stem
 from ..ops.collectives import all_gather_cat, alone
 from ..utils import profiling
 from . import mesh as M
@@ -70,16 +71,55 @@ def classify_slide(model, cfg: amil.MILConfig, builder, *,
     return outs["y_pred"].ravel(), outs, coords
 
 
+def fused_stem_applies(cfg: amil.MILConfig, cnn, raw_u8, *, device,
+                       resolution: int, compute_dtype) -> bool:
+    """Whether the streaming chunk program runs the fused uint8 stem
+    (``ops/u8_stem.u8_stem_extract``) for the raw chunk ``raw_u8`` on
+    ``device``: a CUDA device, the bf16 ResNet-26 whose ``conv1`` is the
+    kernel's 7x7/s2/p3 from 3 to 20 channels with a bias, and uint8
+    ``[N, 300, 300, 3]`` tiles served at 300 px, where the eval
+    transform's resize is the identity. Anywhere else the eval transform
+    and cuDNN's stem run: on the CPU, in float32 (bf16 operands would
+    lower cuDNN's precision), for the ViT and at other tile sizes."""
+    if (torch.device(device).type != "cuda"
+            or compute_dtype != torch.bfloat16
+            or cfg.extractor != "resnet26"):
+        return False
+    conv1 = cnn.conv1
+    return (tuple(conv1.weight.shape) == (u8_stem.C_OUT, 3, 7, 7)
+            and conv1.bias is not None and conv1.stride == (2, 2)
+            and conv1.padding == (3, 3)
+            and raw_u8.dtype == torch.uint8
+            and tuple(raw_u8.shape[1:]) == (u8_stem.H_IN, u8_stem.H_IN, 3)
+            and amil.input_resolution(cfg, resolution) == u8_stem.H_IN)
+
+
 def make_transform_extract(cfg: amil.MILConfig, *, resolution: int = 300,
                            compute_dtype=torch.bfloat16):
     """The default per-chunk program of the streaming path:
-    ``(cnn, raw uint8 [N, H, W, 3]) -> float32 features [N, L]``, the eval
-    transform then ``cfg``'s embedder (``amil.embed``: the ResNet-26 with
-    ``cfg.stem`` at ``resolution``, or the ViT at its own resolution) on
-    the chunk's device."""
+    ``(cnn, raw uint8 [N, H, W, 3]) -> float32 features [N, L]`` on the
+    chunk's device. Where :func:`fused_stem_applies` (a CUDA chunk of uint8
+    300 px tiles served at 300 px through the bf16 ResNet-26) it is the
+    fused uint8 stem extractor, ``u8_stem.u8_stem_extract`` with the eval
+    transform's normalize ``x * 2/255 - 1`` folded into the stem's one
+    launch; the chunk's tiles are counted as ``stem.kernel_tiles``.
+    Otherwise it is the eval transform then ``cfg``'s embedder
+    (``amil.embed``: the ResNet-26 with ``cfg.stem`` at ``resolution``, or
+    the ViT at its own resolution). Both take the same bf16 products of
+    the same normalized values; the choice is made per chunk, from what
+    the chunk and the model are."""
     resolution = amil.input_resolution(cfg, resolution)
+    alpha = 1.0 / (255.0 * transforms.STD)
+    beta = -transforms.MEAN / transforms.STD
 
     def extract(cnn, raw_u8):
+        if fused_stem_applies(cfg, cnn, raw_u8, device=raw_u8.device,
+                              resolution=resolution,
+                              compute_dtype=compute_dtype):
+            profiling.count("stem.kernel_tiles", raw_u8.shape[0])
+            return u8_stem.u8_stem_extract(cnn, raw_u8, alpha=alpha,
+                                           beta=beta,
+                                           compute_dtype=compute_dtype)
         tiles = transforms.eval_transform(raw_u8, resolution=resolution)
         return amil.embed(cnn, tiles, cfg, compute_dtype=compute_dtype)
     return extract
@@ -106,11 +146,13 @@ def classify_slide_streaming(model, cfg: amil.MILConfig, builder, *,
     Only one chunk of tiles plus the features are resident on the device,
     so slides of 50k+ tiles classify on one card. Exact, not approximate:
     the pool is linear over tiles and the per-bag batch-norm takes its
-    statistics over the whole feature matrix. ``transform_extract``, the
-    JAX package's hook, replaces the default per-chunk program
-    (:func:`make_transform_extract`) with any ``(cnn, raw uint8 chunk on
-    the device) -> [N, L]`` function, such as the uint8-stem extractor
-    ``ops.u8_stem.u8_stem_extract`` with its keywords bound. Returns
+    statistics over the whole feature matrix. The default per-chunk
+    program (:func:`make_transform_extract`) runs the fused uint8 stem
+    kernel where :func:`fused_stem_applies` (a CUDA chunk of uint8 300 px
+    tiles at ``resolution`` 300 through the bf16 ResNet-26), and the eval
+    transform with cuDNN's stem elsewhere. ``transform_extract``, the JAX
+    package's hook, replaces it with any ``(cnn, raw uint8 chunk on the
+    device) -> [N, L]`` function, such as the int8 serving path's. Returns
     (probs, outputs dict, coords), as :func:`classify_slide`.
 
     With ``mesh``, every rank of the mesh calls this for the same slide:
