@@ -828,30 +828,29 @@ def stem_ab(cnn, card, rounds=4, iters=5):
     """The counterpart of tools/exp_stem_pallas.py on the card, at
     STEM_AB_TILES uint8 tiles, in interleaved rounds (A B B A): the stem
     alone (cuDNN conv of the normalized bf16 input, LeakyReLU, max-pool vs
-    the kernel, LeakyReLU, max-pool) and the whole extractor
-    (``apply_resnet26`` vs ``u8_stem_extract``). Then the kernel's row: its
-    device time from torch.profiler, its bound, the plain version's time
-    and the library yardstick, cuDNN's ``F.conv2d`` on the normalized bf16
-    input (the stem conv the default serving path runs; the kernel path
-    never calls it)."""
+    the kernel, LeakyReLU, max-pool: ``ResNet26.stem`` vs ``stem_u8``) and
+    the whole extractor (``ResNet26.forward`` vs ``forward_u8``). Then the
+    kernel's row: its device time from torch.profiler, its bound, the
+    plain version's time and the library yardstick, cuDNN's ``F.conv2d``
+    on the normalized bf16 input (the stem conv the default serving path
+    runs; the kernel path never calls it)."""
     b = STEM_AB_TILES
     bf = torch.bfloat16
     x = stem_tiles(b, 300, cnn.conv1.weight.device)
     kw = {"alpha": SERVE_ALPHA, "beta": SERVE_BETA}
 
     def stem_cudnn():
-        return cnn._stem(transforms.normalize_u8(x), bf, "conv7")
+        return cnn.stem(transforms.normalize_u8(x), compute_dtype=bf)
 
     def stem_kernel():
-        h = u8_stem.stem_u8_conv(cnn.conv1, x, **kw).to(bf)
-        return F.max_pool2d(N.leaky_relu(h.permute(0, 3, 1, 2)), 3, 2, 1)
+        return cnn.stem_u8(x, compute_dtype=bf, **kw)
 
     def full_cudnn():
         return resnet.apply_resnet26(cnn, transforms.normalize_u8(x),
                                      compute_dtype=bf)
 
     def full_kernel():
-        return u8_stem.u8_stem_extract(cnn, x, compute_dtype=bf, **kw)
+        return cnn.forward_u8(x, compute_dtype=bf, **kw).float()
 
     variants = {"stem/cudnn": stem_cudnn, "stem/kernel": stem_kernel,
                 "full/cudnn": full_cudnn, "full/kernel": full_kernel}
@@ -1182,8 +1181,9 @@ def serve_u8_stem(model, cfg, big, p_big, p32_big, card):
     one stem launch per chunk, one pool launch, probabilities within 1e-3
     of the cuDNN bf16 path and the f32 path (the bf16 contract,
     BASELINE.md:32). Returns (stem launches, pool launches)."""
-    ext = functools.partial(u8_stem.u8_stem_extract, alpha=SERVE_ALPHA,
-                            beta=SERVE_BETA, compute_dtype=torch.bfloat16)
+    def ext(cnn, x):
+        return cnn.forward_u8(x, alpha=SERVE_ALPHA, beta=SERVE_BETA,
+                              compute_dtype=torch.bfloat16).float()
 
     def fn():
         return inference.classify_slide_streaming(
@@ -1960,6 +1960,7 @@ def _poison_model_code():
 
     for obj, name in ((resnet, "init_resnet26"), (resnet, "apply_resnet26"),
                       (resnet.ResNet26, "forward"),
+                      (resnet.ResNet26, "forward_u8"),
                       (amil, "init_attention_mil"),
                       (amil.AttentionMIL, "__init__"),
                       (amil, "attention_pool")):
@@ -2543,8 +2544,7 @@ def split_extract_step(model, window, shares):
 
         def extract(cnn, x):
             return torch.cat([resnet.apply_resnet26(
-                cnn, x[i * step:(i + 1) * step], stem=cfg.stem)
-                for i in range(shares)])
+                cnn, x[i * step:(i + 1) * step]) for i in range(shares)])
 
         outs = amil._bag_forward(work, tiles[b][idx.to(device)], labels[b],
                                  cfg, sub.to(device), kp, None, remat=False,

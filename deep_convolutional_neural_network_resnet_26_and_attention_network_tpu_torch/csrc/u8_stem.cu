@@ -25,11 +25,11 @@
 //
 // Design. The GEMM is M = output pixels, N = 20 channels padded to 24 (three
 // n8 tiles), K = 256. K is the TPU kernel's space-to-depth order: the padded
-// image's 2x2 pixel blocks are s2d pixels P[R][C] of 12 channels
+// image's 2x2 pixel blocks are folded pixels P[R][C] of 12 channels
 // (rp*6 + cp*3 + c, padded to 16), the 7x7/s2 conv is a 4x4/s1 conv over P,
 // and k = (a*4 + b)*16 + ch. One tap (a, b) is then one k16 step of
 // mma.sync.m16n8k16 (bf16 in, float32 accumulate), and its A operand, 16
-// output pixels of one row, is 16 consecutive s2d pixels of 32 bytes each:
+// output pixels of one row, is 16 consecutive folded pixels of 32 bytes each:
 // one ldmatrix.x4 straight from shared memory, no im2col gather. mma.sync is
 // enough: the whole GEMM (K = 256 with the padding, N = 24) is about 0.3 ms
 // at the dense bf16 peak, under the byte bound, so wgmma's higher rate would
@@ -43,11 +43,11 @@
 // image rows come in by 4-byte copies, all in flight at once (a row is 900
 // bytes, so every row starts 4-byte aligned; 900 is not a multiple of 16,
 // which rules out a 2-D TMA map). The block normalizes them once into the
-// band's 11 s2d rows, bf16 [11][163][16] in shared memory (columns 152-162
+// band's 11 folded rows, bf16 [11][163][16] in shared memory (columns 152-162
 // and channels 12-15 are zeros, so the last 16-pixel M tile of a row reads
 // zeros and out-of-image taps need no correction); a thread builds two
-// adjacent s2d pixels from four 32-bit shared loads a row, so no pass
-// zeroes the band first. The two 16-byte halves of s2d pixel C are swapped
+// adjacent folded pixels from four 32-bit shared loads a row, so no pass
+// zeroes the band first. The two 16-byte halves of folded pixel C are swapped
 // when bit 2 of C is set: ldmatrix's 8 row addresses at a 32-byte stride
 // would otherwise hit the same banks two ways. The packed weights [24][256]
 // bf16, packed by the wrapper, sit in shared memory with a 528-byte row
@@ -78,15 +78,15 @@ constexpr int kIn = 300;                      // tile side, the only shape
 constexpr int kOut = 150;                     // output side
 constexpr int kCout = 20;                     // live output channels
 constexpr int kN = 24;                        // channels padded to 3 n8 tiles
-constexpr int kK = 256;                       // 16 taps x 16 s2d channels
+constexpr int kK = 256;                       // 16 taps x 16 folded channels
 constexpr int kRows = 8;                      // output rows per block
 constexpr int kWarps = kRows;                 // one output row per warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBands = (kOut + kRows - 1) / kRows;   // 19
 constexpr int kMTiles = 10;                   // 16-pixel M tiles a row: 160
 constexpr int kGroup = 5;                     // M tiles summed at once
-constexpr int kBandRows = kRows + 3;          // s2d rows a band reads: 11
-constexpr int kCols = kMTiles * 16 + 3;       // 163 s2d columns
+constexpr int kBandRows = kRows + 3;          // folded rows a band reads: 11
+constexpr int kCols = kMTiles * 16 + 3;       // 163 folded columns
 constexpr int kWStride = kK + 8;              // bf16 a weight row: 528 B
 constexpr int kBandBytes = kBandRows * kCols * 32;       // 57,376
 constexpr int kWBytes = kN * kWStride * 2;               // 12,672
@@ -101,7 +101,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// byte offset of the 16-byte half `half` (channels 8*half..8*half+7) of s2d
+// byte offset of the 16-byte half `half` (channels 8*half..8*half+7) of folded
 // pixel (r, C) in the band; halves swap when bit 2 of C is set
 __device__ __forceinline__ uint32_t band_off(int r, int C, int half) {
   return static_cast<uint32_t>(((r * kCols + C) * 2 + (half ^ ((C >> 2) & 1))) * 16);
@@ -161,7 +161,7 @@ __device__ __forceinline__ void copy_rows(const uint8_t* __restrict__ x,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// The band's s2d pixels from output row i0, two at a time: s2d pixels
+// The band's folded pixels from output row i0, two at a time: folded pixels
 // (r, 2p) and (r, 2p+1) are image rows 2*(i0+r)-3+rp (raw row 2r+rp),
 // columns 4p-3 .. 4p (cp = column & 1), channel rp*6 + cp*3 + c: 12 bytes of
 // each row, inside the four aligned 32-bit words from byte 12p-12, read
@@ -225,7 +225,7 @@ u8_stem_kernel(const uint8_t* __restrict__ x, const uint4* __restrict__ w2,
                const float* __restrict__ bias, float* __restrict__ out,
                int64_t items, float alpha, float beta) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* band = smem;                                    // s2d input, bf16
+  uint8_t* band = smem;                                    // folded input, bf16
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + kBandBytes);
   float* stage = reinterpret_cast<float*>(smem + kBandBytes + kWBytes);
   uint8_t* raw = smem + kBandBytes + kWBytes + kStageBytes;  // uint8 rows

@@ -8,10 +8,9 @@ Counterpart of ``deploy.py`` in the JAX package, in PyTorch's idiom.
   * ``extract.pt2``: uint8 tiles ``[N, roi, roi, 3]`` -> float32 features
     ``[N, L]``, the streaming path's per-chunk program
     (``parallel.inference.make_transform_extract``), N from 1 to ``chunk``:
-    on the card at a roi and resolution of 300 in bf16 the fused uint8
-    stem, the ``torch.library`` op of ``ops/u8_stem.py``, then the
-    ResNet-26's stages; elsewhere the eval transform then the ResNet-26
-    with ``cfg.stem``;
+    on the card at a roi and resolution of 300 in bf16 the ResNet-26's
+    uint8 entry, whose fused stem is the ``torch.library`` op of
+    ``ops/u8_stem.py``; elsewhere the eval transform then the ResNet-26;
   * ``pool.pt2``: features ``[T, L]`` -> the head's outputs
     (``models.attention_mil.attention_pool``), T from 1 to ``tiles``. The
     gated pool in it is the ``torch.library`` op of ``ops/gated_pool.py``,
@@ -330,9 +329,6 @@ def build_argparser():
                          "unset: smoke tests only)")
     pe.add_argument("--out", required=True)
     pe.add_argument("--arch", default="full", choices=["full", "tiny"])
-    pe.add_argument("--stem", default="conv7", choices=["conv7", "s2d"],
-                    help="s2d = the space-to-depth stem (the same math), "
-                         "traced into the extractor program")
     pe.add_argument("--resolution", default=300, type=int)
     pe.add_argument("--roi_size", default=1200, type=int)
     pe.add_argument("--chunk", default=1024, type=int,

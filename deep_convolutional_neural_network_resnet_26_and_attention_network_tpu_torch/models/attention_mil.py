@@ -71,11 +71,10 @@ class MILConfig:
     dropout: float = 0.25
     train_tile_fraction: float = 0.2
     remat: bool = False  # recompute resnet blocks in the backward pass
-    stem: str = "conv7"  # "s2d" = space-to-depth stem (same math)
     class_weights: Optional[Tuple[float, ...]] = None
     widths: Tuple[int, ...] = resnet.WIDTHS
     blocks: Tuple[int, ...] = resnet.BLOCKS_PER_STAGE
-    # the tile embedder: the ResNet-26 (``widths``, ``blocks``, ``stem``) or
+    # the tile embedder: the ResNet-26 (``widths``, ``blocks``) or
     # UNI's ViT (``vit``'s sizes at width L)
     extractor: str = "resnet26"
     vit: ViTConfig = ViTConfig()
@@ -157,7 +156,7 @@ def embed(cnn, tiles, cfg: MILConfig, *, compute_dtype=None,
         return vit.apply_vit(cnn, tiles, compute_dtype=compute_dtype,
                              remat=remat)
     return resnet.apply_resnet26(cnn, tiles, compute_dtype=compute_dtype,
-                                 stem=cfg.stem, remat=remat).float()
+                                 remat=remat).float()
 
 
 def input_resolution(cfg: MILConfig, resolution: int) -> int:

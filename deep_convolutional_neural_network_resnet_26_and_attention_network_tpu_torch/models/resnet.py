@@ -18,11 +18,17 @@ the permute to NCHW is a ``channels_last`` view, and every conv runs in
 that memory format. ``remat=True`` recomputes each residual block in the
 backward pass (``torch.utils.checkpoint``, as the JAX package's
 ``jax.checkpoint``), trading compute for activation memory.
+
+Two entries run the one trunk (the stages, the pool and ``fc``):
+``forward`` on float tiles through cuDNN's stem, and ``forward_u8`` on
+uint8 tiles through the fused stem of ``ops/u8_stem.py``, which the
+streaming path's chunk program takes on the card. ``stem``, ``stem_u8``,
+``run_stage`` and ``head`` are the pieces, which the per-stage profile
+times one by one.
 """
 
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -31,62 +37,11 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops import init as I
 from ..ops import nn as N
+from ..ops import u8_stem
 
 WIDTHS = (20, 40, 60, 80)
 BLOCKS_PER_STAGE = (3, 3, 3, 3)
 EMBED_DIM = 80
-
-
-def _s2d_index_maps():
-    """Static index maps rearranging the [7,7,3,co] stem kernel into the
-    equivalent [4,4,12,co] kernel over space-to-depth input.
-
-    Derivation: out(i) = sum_u W7[u] x[2i+u-3]; write u-3 = 2m+dy with
-    dy = (u-3) % 2, m = (u-3-dy)//2 — the tap lands at s2d row i+m,
-    parity dy, i.e. conv4 tap a = m+2 with asymmetric padding (2, 1).
-    Every (u, v, c) source maps to a unique (a, b, channel) slot; slots
-    with no source stay zero.
-    """
-    src_u, src_v, src_c = [], [], []
-    dst_a, dst_b, dst_ch = [], [], []
-    for u in range(7):
-        ky = u - 3
-        dy = ky % 2
-        a = (ky - dy) // 2 + 2
-        for v in range(7):
-            kx = v - 3
-            dx = kx % 2
-            b = (kx - dx) // 2 + 2
-            for c in range(3):
-                src_u.append(u)
-                src_v.append(v)
-                src_c.append(c)
-                dst_a.append(a)
-                dst_b.append(b)
-                dst_ch.append((dy * 2 + dx) * 3 + c)
-    return tuple(np.asarray(x, np.int64)
-                 for x in (src_u, src_v, src_c, dst_a, dst_b, dst_ch))
-
-
-_S2D_MAPS = _s2d_index_maps()
-
-
-def stem_s2d_kernel(w7):
-    """[7,7,3,co] HWIO stem weights -> the equivalent [4,4,12,co] HWIO
-    kernel over space-to-depth input (see :func:`_s2d_index_maps`)."""
-    su, sv, sc, da, db, dch = (torch.from_numpy(m).to(w7.device)
-                               for m in _S2D_MAPS)
-    w4 = w7.new_zeros((4, 4, 12, w7.shape[-1]))
-    w4[da, db, dch] = w7[su, sv, sc]
-    return w4
-
-
-def space_to_depth2(x):
-    """[N,2H,2W,C] -> [N,H,W,4C], channel index (dy*2+dx)*C + c."""
-    n, h2, w2, c = x.shape
-    y = x.reshape(n, h2 // 2, 2, w2 // 2, 2, c)
-    y = y.permute(0, 1, 3, 2, 4, 5)
-    return y.reshape(n, h2 // 2, w2 // 2, 4 * c)
 
 
 class BasicBlock(nn.Module):
@@ -170,52 +125,80 @@ class ResNet26(nn.Module):
             for block in stage:
                 block.reset_parameters(generator)
 
-    def _stem(self, x_nhwc, compute_dtype, stem, act=N.leaky_relu):
-        w, b = self.conv1.weight, self.conv1.bias
-        if stem == "s2d" and x_nhwc.shape[1] % 2 == 0 \
-                and x_nhwc.shape[2] % 2 == 0:
-            xc = (x_nhwc.to(compute_dtype) if compute_dtype is not None
-                  else x_nhwc)
-            w4 = stem_s2d_kernel(w.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
-            h = N.conv2d_nchw(space_to_depth2(xc).permute(0, 3, 1, 2), w4, b,
-                              stride=1, padding=[(2, 1), (2, 1)],
-                              compute_dtype=compute_dtype)
-        else:
-            h = N.conv2d_nchw(x_nhwc.permute(0, 3, 1, 2), w, b, stride=2,
-                              padding=3, compute_dtype=compute_dtype)
-        return F.max_pool2d(act(h), 3, 2, 1)
+    def stem(self, x, *, compute_dtype=None, act_fn=None):
+        """cuDNN's stem on float NHWC tiles: conv 7x7/s2/p3 with bias,
+        LeakyReLU (or ``act_fn``), max-pool 3/2/1; returns NCHW
+        (``channels_last``) activations."""
+        h = N.conv2d_nchw(x.permute(0, 3, 1, 2), self.conv1.weight,
+                          self.conv1.bias, stride=2, padding=3,
+                          compute_dtype=compute_dtype)
+        return F.max_pool2d((act_fn or N.leaky_relu)(h), 3, 2, 1)
 
-    def forward(self, x, *, compute_dtype=None, taps: bool = False,
-                stem: str = "conv7", remat: bool = False, act_fn=None):
-        """x [N, H, W, 3] -> [N, embed_dim]. ``taps=True`` also returns the
-        ordered NHWC activations 'stem', 'stage1'..'stage4' and 'pool'.
-        ``stem="s2d"`` computes the stem as space-to-depth + conv4x4 (the
-        same sum of products; conv7 for odd sizes). ``remat=True`` keeps
-        only each block's input for the backward pass and recomputes the
-        rest there (a no-op without autograd). ``act_fn`` replaces every
-        LeakyReLU (the stem's and the blocks'), as the JAX package's
-        ``act_fn`` does; guided backprop passes its guided activation."""
-        x = x.contiguous()
-        acts = {}
-        act = act_fn or N.leaky_relu
-        h = self._stem(x, compute_dtype, stem, act)
-        if taps:
-            acts["stem"] = h.permute(0, 2, 3, 1)
-        for s, stage in enumerate(self.stages()):
-            for block in stage:
-                if remat and torch.is_grad_enabled():
-                    h = checkpoint(block, h, compute_dtype, act_fn,
-                                   use_reentrant=False)
-                else:
-                    h = block(h, compute_dtype, act_fn)
+    def stem_u8(self, x_u8, *, alpha, beta, compute_dtype=None):
+        """The fused stem on uint8 NHWC tiles: ``ops/u8_stem.stem_u8_conv``
+        (the normalize ``x * alpha + beta`` and the conv in one launch on
+        the card), its float32 output cast to ``compute_dtype``, LeakyReLU,
+        max-pool 3/2/1; returns NCHW (``channels_last``) activations."""
+        h = u8_stem.stem_u8_conv(self.conv1, x_u8, alpha=alpha, beta=beta)
+        if compute_dtype is not None:
+            h = h.to(compute_dtype)
+        return F.max_pool2d(N.leaky_relu(h.permute(0, 3, 1, 2)), 3, 2, 1)
+
+    def run_stage(self, s, h, *, compute_dtype=None, act_fn=None,
+                  remat=False):
+        """Stage ``s`` (from 0) of residual blocks on NCHW activations."""
+        for block in self.stages()[s]:
+            if remat and torch.is_grad_enabled():
+                h = checkpoint(block, h, compute_dtype, act_fn,
+                               use_reentrant=False)
+            else:
+                h = block(h, compute_dtype, act_fn)
+        return h
+
+    def head(self, h, *, compute_dtype=None):
+        """NCHW activations -> (global average pool [N, C], embeddings
+        [N, embed_dim] through ``fc``)."""
+        pooled = h.mean(dim=(2, 3))
+        return pooled, N.linear(pooled, self.fc.weight.T,
+                                compute_dtype=compute_dtype)
+
+    def _trunk(self, h, compute_dtype, taps, remat, act_fn):
+        """Either stem's activations -> the stages and the head."""
+        acts = {"stem": h.permute(0, 2, 3, 1)} if taps else None
+        for s in range(self.n_stages):
+            h = self.run_stage(s, h, compute_dtype=compute_dtype,
+                               act_fn=act_fn, remat=remat)
             if taps:
                 acts[f"stage{s + 1}"] = h.permute(0, 2, 3, 1)
-        h = h.mean(dim=(2, 3))
-        out = N.linear(h, self.fc.weight.T, compute_dtype=compute_dtype)
+        pooled, out = self.head(h, compute_dtype=compute_dtype)
         if taps:
-            acts["pool"] = h
+            acts["pool"] = pooled
             return out, acts
         return out
+
+    def forward(self, x, *, compute_dtype=None, taps: bool = False,
+                remat: bool = False, act_fn=None):
+        """x [N, H, W, 3] -> [N, embed_dim] through cuDNN's stem.
+        ``taps=True`` also returns the ordered NHWC activations 'stem',
+        'stage1'..'stage4' and 'pool'. ``remat=True`` keeps only each
+        block's input for the backward pass and recomputes the rest there
+        (a no-op without autograd). ``act_fn`` replaces every LeakyReLU
+        (the stem's and the blocks'), as the JAX package's ``act_fn``
+        does; guided backprop passes its guided activation."""
+        h = self.stem(x.contiguous(), compute_dtype=compute_dtype,
+                      act_fn=act_fn)
+        return self._trunk(h, compute_dtype, taps, remat, act_fn)
+
+    @torch.no_grad()
+    def forward_u8(self, x_u8, *, alpha, beta, compute_dtype=None):
+        """uint8 tiles [N, 300, 300, 3] -> [N, embed_dim] through the fused
+        stem (:meth:`stem_u8`), where ``u8_stem.accepts`` this ``conv1``
+        and the tiles. Serving only: it runs without autograd. The
+        streaming path's chunk program calls it with the eval transform's
+        normalize, ``alpha=2/255, beta=-1``."""
+        h = self.stem_u8(x_u8, alpha=alpha, beta=beta,
+                         compute_dtype=compute_dtype)
+        return self._trunk(h, compute_dtype, False, False, None)
 
 
 def init_resnet26(generator, *, embed_dim: int = EMBED_DIM,
@@ -230,7 +213,7 @@ def init_resnet26(generator, *, embed_dim: int = EMBED_DIM,
 
 
 def apply_resnet26(model, x, *, compute_dtype=None, taps: bool = False,
-                   act_fn=None, stem: str = "conv7", remat: bool = False):
+                   act_fn=None, remat: bool = False):
     """Forward: x [N, H, W, 3] -> embeddings [N, embed_dim]."""
-    return model(x, compute_dtype=compute_dtype, taps=taps, stem=stem,
-                 remat=remat, act_fn=act_fn)
+    return model(x, compute_dtype=compute_dtype, taps=taps, remat=remat,
+                 act_fn=act_fn)

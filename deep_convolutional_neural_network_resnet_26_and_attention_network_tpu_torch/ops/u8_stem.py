@@ -14,20 +14,21 @@ op ``OP`` (:func:`u8_stem_forward`): ``csrc/u8_stem.cu`` for CUDA tensors,
 ``torch.export``'s fake tensors, so an exported program (``deploy.py``)
 holds the stem as one node, as it holds the gated pool. A program that
 holds the op loads only once this module has registered it.
-:func:`u8_stem_extract` is the whole extractor on top of it, the
-counterpart of the composition in ``tools/exp_stem_pallas.py``.
+:func:`accepts` says what the op computes; :func:`stem_u8_conv` raises
+elsewhere. The ResNet's uint8 entry (``models/resnet.ResNet26.forward_u8``)
+runs the op, then its residual trunk: the counterpart of the composition in
+``tools/exp_stem_pallas.py``.
 
 The streaming path selects it by default:
 ``parallel.inference.make_transform_extract``, the per-chunk program of
-``classify_slide_streaming``, the daemon's and the bundle's, runs
-:func:`u8_stem_extract` with the eval transform's normalize
-(``alpha=2/255``, ``beta=-1``) wherever ``inference.fused_stem_applies``:
-a CUDA chunk of uint8 300 px tiles served at 300 px through the bf16
-ResNet-26. There it does the eval transform's and cuDNN's work (a float32
-pass over the tiles, a cast, cuDNN's padding of 3 channels to 8, the 7x7
-convolution) in one launch on the same bf16 operands. The JAX package
-keeps its stem opt-in. Serving only: every function here runs without
-autograd.
+``classify_slide_streaming``, the daemon's and the bundle's, runs the
+uint8 entry with the eval transform's normalize (``alpha=2/255``,
+``beta=-1``) wherever ``inference.fused_stem_applies``: a CUDA chunk the
+op accepts, served at 300 px through the bf16 ResNet-26. There it does the
+eval transform's and cuDNN's work (a float32 pass over the tiles, a cast,
+cuDNN's padding of 3 channels to 8, the 7x7 convolution) in one launch on
+the same bf16 operands. The JAX package keeps its stem opt-in. Serving
+only: every function here runs without autograd.
 """
 
 import ctypes
@@ -36,7 +37,6 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from . import nn as N
 
 H_IN = 300            # the only tile side the kernel takes, as in JAX
 OUT = H_IN // 2       # 150 output rows and columns
@@ -48,23 +48,35 @@ K_PAD = 256           # its depth: 16 taps (a, b) x 16 space-to-depth channels
 LAUNCHES = 0
 
 
-def _check(conv1, x_u8):
-    if (x_u8.dtype != torch.uint8 or x_u8.ndim != 4
-            or tuple(x_u8.shape[1:]) != (H_IN, H_IN, 3)):
-        raise ValueError(
-            f"fused stem expects uint8 [B, {H_IN}, {H_IN}, 3]; got "
-            f"{x_u8.dtype} {tuple(x_u8.shape)}")
-    if x_u8.shape[0] < 1:
-        raise ValueError("fused stem needs at least one tile")
+def accepts(conv1, x_u8) -> bool:
+    """Whether the op computes the stem ``conv1`` on ``x_u8``: uint8
+    ``[N >= 1, 300, 300, 3]`` tiles, and a 7x7 conv with stride 2, padding
+    3 and no dilation from 3 to 20 channels, with a bias, on the tiles'
+    device. It says nothing of the device's type: CPU tensors take the
+    plain version."""
     w = conv1.weight
-    if tuple(w.shape) != (C_OUT, 3, 7, 7) or conv1.bias is None:
+    return (x_u8.dtype == torch.uint8 and x_u8.ndim == 4
+            and tuple(x_u8.shape[1:]) == (H_IN, H_IN, 3)
+            and x_u8.shape[0] >= 1
+            and tuple(w.shape) == (C_OUT, 3, 7, 7) and conv1.bias is not None
+            and tuple(conv1.stride) == (2, 2)
+            and tuple(conv1.padding) == (3, 3)
+            and tuple(conv1.dilation) == (1, 1)
+            and w.device == x_u8.device)
+
+
+def _check(conv1, x_u8):
+    if not accepts(conv1, x_u8):
+        w = conv1.weight
         raise ValueError(
-            f"fused stem expects a 7x7 conv from 3 to {C_OUT} channels with "
-            f"a bias; got weight {tuple(w.shape)}, bias "
-            f"{'none' if conv1.bias is None else tuple(conv1.bias.shape)}")
-    if w.device != x_u8.device:
-        raise ValueError(f"conv1 lies on {w.device} but the tiles on "
-                         f"{x_u8.device}")
+            f"fused stem expects uint8 [B >= 1, {H_IN}, {H_IN}, 3] tiles and "
+            f"a 7x7 conv, stride 2, padding 3, no dilation, from 3 to "
+            f"{C_OUT} channels with a bias, on the tiles' device; got tiles "
+            f"{x_u8.dtype} {tuple(x_u8.shape)} on {x_u8.device}, conv1 "
+            f"weight {tuple(w.shape)} stride {conv1.stride} padding "
+            f"{conv1.padding} dilation {conv1.dilation} bias "
+            f"{'none' if conv1.bias is None else tuple(conv1.bias.shape)} "
+            f"on {w.device}")
     return x_u8.device
 
 
@@ -174,32 +186,13 @@ def _u8_stem_forward_fake(x_u8, weight, bias, alpha, beta):
 def stem_u8_conv(conv1, x_u8, *, alpha, beta):
     """Fused uint8 -> normalize ``x * alpha + beta`` -> conv 7x7/s2/p3 +
     bias. conv1: the port's stem ``nn.Conv2d`` (20 outputs); x_u8: uint8
-    [B, 300, 300, 3]. Returns the pre-activation float32 NHWC
-    [B, 150, 150, 20] (a ``channels_last`` NCHW tensor once permuted).
-    CUDA tensors go through the kernel (or raise); CPU tensors through the
-    plain version; both through the op ``OP``."""
+    [B, 300, 300, 3]; anything :func:`accepts` refuses raises. Returns the
+    pre-activation float32 NHWC [B, 150, 150, 20] (a ``channels_last``
+    NCHW tensor once permuted). CUDA tensors go through the kernel (or
+    raise); CPU tensors through the plain version; both through the op
+    ``OP``."""
     device = _check(conv1, x_u8)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return u8_stem_forward(x_u8, conv1.weight, conv1.bias, float(alpha),
                            float(beta))
-
-
-@torch.no_grad()
-def u8_stem_extract(cnn, x_u8, *, alpha, beta, compute_dtype=torch.bfloat16):
-    """uint8 tiles [N, 300, 300, 3] -> float32 features [N, L] through the
-    fused stem, then LeakyReLU and max-pool 3/2/1 in ``compute_dtype``, the
-    ResNet's residual stages, global average pool and ``fc``: the
-    counterpart of ``tools/exp_stem_pallas.py``'s ``fwd_b``. With
-    ``functools.partial`` binding the keywords it is a
-    ``transform_extract``; the serving normalize is ``alpha=2/255,
-    beta=-1``."""
-    h = stem_u8_conv(cnn.conv1, x_u8, alpha=alpha, beta=beta)
-    if compute_dtype is not None:
-        h = h.to(compute_dtype)
-    h = F.max_pool2d(N.leaky_relu(h.permute(0, 3, 1, 2)), 3, 2, 1)
-    for stage in cnn.stages():
-        for block in stage:
-            h = block(h, compute_dtype)
-    h = h.mean(dim=(2, 3))
-    return N.linear(h, cnn.fc.weight.T, compute_dtype=compute_dtype).float()

@@ -73,25 +73,18 @@ def classify_slide(model, cfg: amil.MILConfig, builder, *,
 
 def fused_stem_applies(cfg: amil.MILConfig, cnn, raw_u8, *, device,
                        resolution: int, compute_dtype) -> bool:
-    """Whether the streaming chunk program runs the fused uint8 stem
-    (``ops/u8_stem.u8_stem_extract``) for the raw chunk ``raw_u8`` on
-    ``device``: a CUDA device, the bf16 ResNet-26 whose ``conv1`` is the
-    kernel's 7x7/s2/p3 from 3 to 20 channels with a bias, and uint8
-    ``[N, 300, 300, 3]`` tiles served at 300 px, where the eval
-    transform's resize is the identity. Anywhere else the eval transform
-    and cuDNN's stem run: on the CPU, in float32 (bf16 operands would
-    lower cuDNN's precision), for the ViT and at other tile sizes."""
-    if (torch.device(device).type != "cuda"
-            or compute_dtype != torch.bfloat16
-            or cfg.extractor != "resnet26"):
-        return False
-    conv1 = cnn.conv1
-    return (tuple(conv1.weight.shape) == (u8_stem.C_OUT, 3, 7, 7)
-            and conv1.bias is not None and conv1.stride == (2, 2)
-            and conv1.padding == (3, 3)
-            and raw_u8.dtype == torch.uint8
-            and tuple(raw_u8.shape[1:]) == (u8_stem.H_IN, u8_stem.H_IN, 3)
-            and amil.input_resolution(cfg, resolution) == u8_stem.H_IN)
+    """Whether the streaming chunk program runs the ResNet's uint8 entry
+    (``ResNet26.forward_u8``, the fused stem) for the raw chunk ``raw_u8``
+    on ``device``: a CUDA device, the bf16 ResNet-26 served at 300 px,
+    where the eval transform's resize is the identity, and a stem and
+    chunk that ``u8_stem.accepts``. Anywhere else the eval transform and
+    cuDNN's stem run: on the CPU, in float32 (bf16 operands would lower
+    cuDNN's precision), for the ViT and at other tile sizes."""
+    return (torch.device(device).type == "cuda"
+            and compute_dtype == torch.bfloat16
+            and cfg.extractor == "resnet26"
+            and amil.input_resolution(cfg, resolution) == u8_stem.H_IN
+            and u8_stem.accepts(cnn.conv1, raw_u8))
 
 
 def make_transform_extract(cfg: amil.MILConfig, *, resolution: int = 300,
@@ -100,14 +93,14 @@ def make_transform_extract(cfg: amil.MILConfig, *, resolution: int = 300,
     ``(cnn, raw uint8 [N, H, W, 3]) -> float32 features [N, L]`` on the
     chunk's device. Where :func:`fused_stem_applies` (a CUDA chunk of uint8
     300 px tiles served at 300 px through the bf16 ResNet-26) it is the
-    fused uint8 stem extractor, ``u8_stem.u8_stem_extract`` with the eval
+    ResNet's uint8 entry, ``ResNet26.forward_u8``, with the eval
     transform's normalize ``x * 2/255 - 1`` folded into the stem's one
     launch; the chunk's tiles are counted as ``stem.kernel_tiles``.
     Otherwise it is the eval transform then ``cfg``'s embedder
-    (``amil.embed``: the ResNet-26 with ``cfg.stem`` at ``resolution``, or
-    the ViT at its own resolution). Both take the same bf16 products of
-    the same normalized values; the choice is made per chunk, from what
-    the chunk and the model are."""
+    (``amil.embed``: the ResNet-26 at ``resolution``, or the ViT at its
+    own resolution). Both take the same bf16 products of the same
+    normalized values; the choice is made per chunk, from what the chunk
+    and the model are."""
     resolution = amil.input_resolution(cfg, resolution)
     alpha = 1.0 / (255.0 * transforms.STD)
     beta = -transforms.MEAN / transforms.STD
@@ -117,9 +110,8 @@ def make_transform_extract(cfg: amil.MILConfig, *, resolution: int = 300,
                               resolution=resolution,
                               compute_dtype=compute_dtype):
             profiling.count("stem.kernel_tiles", raw_u8.shape[0])
-            return u8_stem.u8_stem_extract(cnn, raw_u8, alpha=alpha,
-                                           beta=beta,
-                                           compute_dtype=compute_dtype)
+            return cnn.forward_u8(raw_u8, alpha=alpha, beta=beta,
+                                  compute_dtype=compute_dtype).float()
         tiles = transforms.eval_transform(raw_u8, resolution=resolution)
         return amil.embed(cnn, tiles, cfg, compute_dtype=compute_dtype)
     return extract

@@ -66,8 +66,6 @@ from ..utils import helpers, plots, profiling
 from . import DIVERGED_EXIT, PreemptionLatch, checkpoint, schedule
 
 TARGET_NAMES = ["A", "B", "C"]
-# the options this port does not have (every option is ported)
-NOT_PORTED = {}
 
 
 def build_argparser():
@@ -114,8 +112,6 @@ def build_argparser():
                         "(the reference's DataLoader num_workers)")
     p.add_argument("--arch", default="full", choices=["full", "tiny"],
                    help="tiny = smoke-test model (CI/CPU)")
-    p.add_argument("--stem", default="conv7", choices=["conv7", "s2d"],
-                   help="s2d = space-to-depth stem (identical math)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--f32", action="store_true",
                    help="disable bf16 conv/matmul compute")
@@ -163,15 +159,14 @@ def build_argparser():
 
 def make_config(args, class_weights=None) -> amil.MILConfig:
     """``args.arch`` ``full`` (widths 20/40/60/80, 3 blocks a stage) or
-    ``tiny`` (widths 8, 1 block a stage), ``args.stem`` and ``args.remat``
-    (``conv7`` and off unless given) and optional class weights."""
+    ``tiny`` (widths 8, 1 block a stage), ``args.remat`` (off unless
+    given) and optional class weights."""
     cw = tuple(class_weights) if class_weights is not None else None
     remat = getattr(args, "remat", False)
-    stem = getattr(args, "stem", "conv7")
     if args.arch == "tiny":
         return amil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1),
-                              class_weights=cw, remat=remat, stem=stem)
-    return amil.MILConfig(class_weights=cw, remat=remat, stem=stem)
+                              class_weights=cw, remat=remat)
+    return amil.MILConfig(class_weights=cw, remat=remat)
 
 
 def _seed_generator(*entropy: int) -> torch.Generator:
@@ -717,12 +712,7 @@ class Driver:
             TARGET_NAMES))
 
 
-def _refuse_not_ported(args):
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(
-                f"classify: --{flag} is not ported to the PyTorch package "
-                f"yet; ROADMAP {item} brings it")
+def _refuse_figures_without_matplotlib(args):
     drawing = [f for f, on in (("--peak", args.peak),
                                ("--n_vis", args.n_vis > 0)) if on]
     if drawing and not helpers.have_matplotlib():
@@ -740,7 +730,7 @@ def main(argv=None, *, device=None):
     exit code; asking for more cards than there are raises."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    _refuse_not_ported(args)
+    _refuse_figures_without_matplotlib(args)
     if args.mesh:
         return M.launch(_mesh_rank, args.mesh, args=(argv,),
                         devices=M.mesh_devices(args.mesh, device))[0]

@@ -101,7 +101,6 @@ def build_argparser():
     p.add_argument("--resolution", default=300, type=int)
     p.add_argument("--roi_size", default=None, type=int)
     p.add_argument("--arch", default="full", choices=["full", "tiny"])
-    p.add_argument("--stem", default="conv7", choices=["conv7", "s2d"])
     p.add_argument("--f32", action="store_true",
                    help="float32 convs and matmuls instead of bf16")
     p.add_argument("--int8", action="store_true",

@@ -45,7 +45,7 @@ def _port_cfg(jcfg):
     return tamil.MILConfig(
         L=jcfg.L, D=jcfg.D, K=jcfg.K, O=jcfg.O, n_classes=jcfg.n_classes,
         smoothing=jcfg.smoothing, class_weights=jcfg.class_weights,
-        widths=jcfg.widths, blocks=jcfg.blocks, stem=jcfg.stem)
+        widths=jcfg.widths, blocks=jcfg.blocks)
 
 
 def _port_model(jparams, jcfg):

@@ -279,10 +279,11 @@ def test_default_starts_are_device_independent(net):
 
 @pytest.fixture(scope="module")
 def head():
-    cfg = jamil.MILConfig(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1), L=16)
+    sizes = dict(widths=(8, 8, 8, 8), blocks=(1, 1, 1, 1), L=16)
+    cfg = jamil.MILConfig(**sizes)
     jp = jax.tree_util.tree_map(
         np.asarray, jamil.init_attention_mil(jax.random.PRNGKey(2), cfg))
-    model = tamil.AttentionMIL(tamil.MILConfig(**vars(cfg)), device="cpu")
+    model = tamil.AttentionMIL(tamil.MILConfig(**sizes), device="cpu")
     interop.load_jax_params(model, jp)
     H = np.random.default_rng(9).standard_normal((40, cfg.L)).astype(
         np.float32)
@@ -296,18 +297,16 @@ def _jhead_score(jp, cfg, c):
     return score
 
 
-def _head_score(model, cfg, c):
-    tcfg = tamil.MILConfig(**vars(cfg))
-
+def _head_score(model, c):
     def score(H):
-        return tamil.attention_pool(model, H, tcfg)["logits"][0, c]
+        return tamil.attention_pool(model, H, model.cfg)["logits"][0, c]
     return score
 
 
 @pytest.mark.parametrize("c", [0, 2])
 def test_saliency_through_the_head(head, c):
     cfg, jp, model, H = head
-    jscore, score = _jhead_score(jp, cfg, c), _head_score(model, cfg, c)
+    jscore, score = _jhead_score(jp, cfg, c), _head_score(model, c)
     Ht = torch.from_numpy(H)
     _close(saliency.vanilla_backprop(score, Ht),
            jsaliency.vanilla_backprop(jscore, H))

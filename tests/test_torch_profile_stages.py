@@ -107,9 +107,10 @@ def test_segments_compose_to_the_forward(carried):
     assert float((h - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-def test_kernel_stem_segments_compose_to_u8_stem_extract(carried):
+def test_kernel_stem_segments_compose_to_forward_u8(carried):
     """The stem kernel's segments (its plain version on the CPU) composed
-    equal ``u8_stem_extract``, the whole forward ``--stem kernel`` times."""
+    equal ``ResNet26.forward_u8``, the whole forward ``--stem kernel``
+    times."""
     _, cnn = carried
     g = torch.Generator().manual_seed(0)
     x = torch.randint(0, 256, (1, 300, 300, 3), generator=g,

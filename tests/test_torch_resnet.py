@@ -36,7 +36,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
 _jax_init = jax.jit(jresnet.init_resnet26,
                     static_argnames=("embed_dim", "widths", "blocks"))
 _jax_apply = jax.jit(jresnet.apply_resnet26,
-                     static_argnames=("compute_dtype", "taps", "stem"))
+                     static_argnames=("compute_dtype", "taps"))
 
 
 def _pair(seed, widths, blocks, embed_dim):
@@ -54,28 +54,25 @@ def _rel_err(got, want):
             / np.abs(want).max())
 
 
-@pytest.mark.parametrize("stem", ["conv7", "s2d"])
 @pytest.mark.parametrize("size", [32, 33])
-def test_resnet_f32_matches_jax(stem, size):
+def test_resnet_f32_matches_jax(size):
     jp, model = _pair(0, TINY_W, TINY_B, 24)
     x = np.random.default_rng(1).standard_normal(
         (3, size, size, 3)).astype(np.float32)
-    want = _jax_apply(jp, jnp.asarray(x), stem=stem)
+    want = _jax_apply(jp, jnp.asarray(x))
     with torch.no_grad():
-        got = tresnet.apply_resnet26(model, torch.from_numpy(x), stem=stem)
+        got = tresnet.apply_resnet26(model, torch.from_numpy(x))
     assert got.shape == want.shape
     assert _rel_err(got.numpy(), want) <= 1e-6
 
 
-@pytest.mark.parametrize("stem", ["conv7", "s2d"])
-def test_resnet_bf16_matches_jax(stem):
+def test_resnet_bf16_matches_jax():
     jp, model = _pair(1, TINY_W, TINY_B, 24)
     x = np.random.default_rng(2).standard_normal(
         (3, 32, 32, 3)).astype(np.float32)
-    want = _jax_apply(jp, jnp.asarray(x), stem=stem,
-                      compute_dtype=jnp.bfloat16)
+    want = _jax_apply(jp, jnp.asarray(x), compute_dtype=jnp.bfloat16)
     with torch.no_grad():
-        got = tresnet.apply_resnet26(model, torch.from_numpy(x), stem=stem,
+        got = tresnet.apply_resnet26(model, torch.from_numpy(x),
                                      compute_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert _rel_err(got.float().numpy(), want) <= 2e-2
@@ -97,19 +94,6 @@ def test_resnet_taps_match_jax():
         assert tuple(got_acts[name].shape) == want.shape, name
         assert _rel_err(got_acts[name].numpy(), want) <= 1e-6, name
     assert _rel_err(got_out.numpy(), want_out) <= 1e-6
-
-
-def test_stem_s2d_kernel_matches_jax():
-    w7 = np.random.default_rng(4).standard_normal((7, 7, 3, 5)).astype(
-        np.float32)
-    want = jresnet.stem_s2d_kernel(jnp.asarray(w7))
-    got = tresnet.stem_s2d_kernel(torch.from_numpy(w7))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    x = np.random.default_rng(5).standard_normal((2, 6, 8, 3)).astype(
-        np.float32)
-    np.testing.assert_array_equal(
-        tresnet.space_to_depth2(torch.from_numpy(x)).numpy(),
-        np.asarray(jresnet.space_to_depth2(jnp.asarray(x))))
 
 
 def test_fullwidth_golden_embedding():

@@ -535,17 +535,17 @@ def test_write_map_matches_jax(tmp_path):
     assert len(ft) == 2
 
 
-@pytest.mark.parametrize("arch,stem,cw", [("full", "conv7", None),
-                                          ("tiny", "s2d", (1.0, 2.0, 0.5))])
-def test_make_config_matches_jax(arch, stem, cw):
+@pytest.mark.parametrize("arch,cw", [("full", None),
+                                     ("tiny", (1.0, 2.0, 0.5))])
+def test_make_config_matches_jax(arch, cw):
     class Args:
         pass
 
     args = Args()
-    args.arch, args.stem, args.remat = arch, stem, True
+    args.arch, args.remat = arch, True
     jc = jclassify.make_config(args, cw)
     tc = tclassify.make_config(args, cw)
     for field in ("L", "D", "K", "O", "n_classes", "smoothing", "dropout",
-                  "train_tile_fraction", "stem", "class_weights", "widths",
+                  "train_tile_fraction", "class_weights", "widths",
                   "blocks"):
         assert getattr(tc, field) == getattr(jc, field), field

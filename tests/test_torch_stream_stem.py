@@ -1,8 +1,9 @@
 """The streaming path's default per-chunk program and the fused uint8 stem.
 
-``parallel.inference.make_transform_extract`` runs the fused uint8 stem
-(``ops/u8_stem.u8_stem_extract``) where ``fused_stem_applies``: a CUDA
-chunk of uint8 300 px tiles served at 300 px through the bf16 ResNet-26.
+``parallel.inference.make_transform_extract`` runs the ResNet's uint8
+entry (``ResNet26.forward_u8``, the fused stem) where
+``fused_stem_applies``: a CUDA chunk of uint8 300 px tiles served at 300 px
+through the bf16 ResNet-26.
 Elsewhere it runs the eval transform and cuDNN's stem. The stem is the
 ``torch.library`` op ``u8_stem.OP``, so an exported bundle holds it.
 
@@ -84,8 +85,6 @@ GATE_CASES = {
     #        compute dtype, device, engages)
     "resnet_bf16_300_cuda": ({}, 300, torch.uint8, 300, torch.bfloat16,
                              "cuda", True),
-    "s2d_stem": ({"stem": "s2d"}, 300, torch.uint8, 300, torch.bfloat16,
-                 "cuda", True),
     "cpu": ({}, 300, torch.uint8, 300, torch.bfloat16, "cpu", False),
     "f32": ({}, 300, torch.uint8, 300, None, "cuda", False),
     "fp16": ({}, 300, torch.uint8, 300, torch.float16, "cuda", False),
@@ -117,12 +116,13 @@ def test_fused_stem_gate(case):
         compute_dtype=cdt) is engages
 
 
-@pytest.mark.parametrize("case", ["no_bias", "stride_1"])
+@pytest.mark.parametrize("case", ["no_bias", "stride_1", "padding_0"])
 def test_fused_stem_gate_needs_the_kernels_conv1(case):
     """A stem conv the kernel does not compute keeps cuDNN's stem."""
     cfg = amil.MILConfig(**SMALL)
     model = amil.AttentionMIL(cfg, device="meta")
-    kw = {"bias": False} if case == "no_bias" else {"stride": 1}
+    kw = {"no_bias": {"bias": False}, "stride_1": {"stride": 1},
+          "padding_0": {"padding": 0}}[case]
     model.cnn.conv1 = torch.nn.Conv2d(3, 20, 7, **{"stride": 2, "padding": 3,
                                                    **kw}, device="meta")
     raw = torch.empty((4, 300, 300, 3), dtype=torch.uint8, device="meta")
@@ -212,12 +212,11 @@ def test_counter_counts_the_fused_chunks_only(fused, monkeypatch):
     assert counts.get("stem.kernel_tiles", 0) == (5 if fused else 0)
 
 
-@pytest.mark.parametrize("stem", ["conv7", "s2d"])
-def test_fused_program_matches_the_cudnn_program(stem, fused_on_cpu):
+def test_fused_program_matches_the_cudnn_program(fused_on_cpu):
     """The fused program's features equal the eval transform's and the
-    embedder's within the stem test's bf16 bound, 1e-2 x max|ref|, for
-    both stems (the same sum of products)."""
-    cfg = amil.MILConfig(**SMALL, stem=stem)
+    embedder's within the stem test's bf16 bound, 1e-2 x max|ref| (the
+    same sum of products)."""
+    cfg = amil.MILConfig(**SMALL)
     model = _model(cfg, "cpu", seed=1)
     x = _tiles(3, seed=6)
     with torch.no_grad():

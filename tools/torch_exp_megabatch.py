@@ -5,10 +5,11 @@ The forward is the JAX tool's: uint8 tiles cast to bf16 and divided by 255,
 then the ResNet-26 of ``<port>/models/resnet.py`` in bf16, seeded init. JAX
 runs the K microbatches as one ``lax.scan`` program; eager PyTorch has no
 dispatch to amortise, so here they are a loop of K forwards, one sync at
-the end. ``--stem kernel`` takes the same uint8 tiles through the uint8
-stem kernel (``<port>/ops/u8_stem.py``, ``csrc/u8_stem.cu``; the /255
-normalize is ``alpha=1/255, beta=0``; 300 px only) before the same stages;
-``cudnn``, the default, is the forward JAX runs.
+the end. ``--stem kernel`` takes the same uint8 tiles through the
+ResNet's uint8 entry, ``forward_u8``, whose stem is the kernel
+(``<port>/ops/u8_stem.py``, ``csrc/u8_stem.cu``; the /255 normalize is
+``alpha=1/255, beta=0``; 300 px only) before the same stages; ``cudnn``,
+the default, is the forward JAX runs.
 
 Rounds go round robin across the configs (and stems, with ``--stem
 cudnn,kernel``), each with fresh tiles drawn on the device from a seeded
@@ -58,8 +59,8 @@ def make_forward(cnn, stem: str = "cudnn"):
     """uint8 tiles ``[B, res, res, 3]`` -> float32 embeddings ``[B, L]``:
     the JAX tool's ``/255`` bf16 forward, with the stem as asked."""
     if stem == "kernel":
-        return lambda x: u8_stem.u8_stem_extract(
-            cnn, x, alpha=1 / 255.0, beta=0.0, compute_dtype=DTYPE)
+        return lambda x: cnn.forward_u8(
+            x, alpha=1 / 255.0, beta=0.0, compute_dtype=DTYPE).float()
     return lambda x: resnet.apply_resnet26(
         cnn, x.to(DTYPE) / 255.0, compute_dtype=DTYPE).float()
 

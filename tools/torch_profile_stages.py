@@ -10,11 +10,14 @@ the card's name and power limit, each segment's TFLOP/s as a share of a
 bf16 product calibration taken in the same process
 (``share_of_calibration``), and the pool's and stem's kernel launches.
 
-``--stem cudnn`` (the default) computes the stem as the forward does, a
-7x7/s2 ``F.conv2d`` on float32 tiles; ``--stem kernel`` takes uint8 tiles
-through ``<port>/ops/u8_stem.py`` (``csrc/u8_stem.cu``, 300 px only), the
-stem segment and the whole forward (``u8_stem_extract``) both: the twin of
-``tools/exp_stem_pallas.py``'s A/B. The FLOP count is the same.
+The segments are the ResNet's own pieces (``stem``, ``run_stage``,
+``head``). ``--stem cudnn`` (the default) times its float entry,
+``ResNet26.forward`` with cuDNN's 7x7/s2 stem on float32 tiles; ``--stem
+kernel`` its uint8 entry, ``ResNet26.forward_u8``, whose stem is
+``<port>/ops/u8_stem.py`` (``csrc/u8_stem.cu``, 300 px only), in the stem
+segment and the whole forward both: the twin of
+``tools/exp_stem_pallas.py``'s A/B. The FLOP count is the same, and is
+``benchmark/flops.py``'s.
 
 ``--device-calibration`` prints the bf16 product rate of chained 4096^3
 ``torch.matmul`` calls at 16 and 32 chains and their marginal rate.
@@ -41,7 +44,6 @@ import os
 import sys
 
 import torch
-import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))  # repo root, for `python tools/...`
@@ -51,44 +53,17 @@ from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch
     resnet,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E402,E501
-    nn as N,
     u8_stem,
 )
 from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.parallel import (  # noqa: E402,E501
     steps,
 )
+from benchmark.flops import segment_flops  # noqa: E402
 from tools import torch_measure as TM  # noqa: E402
 
 SEGMENTS = ("stem", "stage1", "stage2", "stage3", "stage4", "pool_fc")
 SERVE_ALPHA, SERVE_BETA = 2 / 255.0, -1.0   # data/transforms.py's normalize
 CALIB_N = {"cuda": 4096, "cpu": 512}
-
-
-def conv_flops(h, w, kh, kw, cin, cout):
-    """MACs*2 for one conv producing an h x w x cout map."""
-    return 2.0 * h * w * kh * kw * cin * cout
-
-
-def segment_flops(res=300, widths=(20, 40, 60, 80), blocks=(3, 3, 3, 3)):
-    """Analytic per-tile FLOPs for stem / each stage / fc at ``res``."""
-    out = {}
-    h = (res + 1) // 2  # stem conv s2 p3
-    out["stem"] = conv_flops(h, h, 7, 7, 3, widths[0])
-    h = (h + 1) // 2  # maxpool s2 p1
-    cin = widths[0]
-    for si, (wd, nb) in enumerate(zip(widths, blocks)):
-        f = 0.0
-        for b in range(nb):
-            stride = 2 if (si > 0 and b == 0) else 1
-            ho = (h + stride - 1) // stride
-            f += conv_flops(ho, ho, 3, 3, cin, wd)      # conv1
-            f += conv_flops(ho, ho, 3, 3, wd, wd)       # conv2
-            if stride != 1 or cin != wd:
-                f += conv_flops(ho, ho, 1, 1, cin, wd)  # downsample
-            h, cin = ho, wd
-        out[f"stage{si + 1}"] = f
-    out["pool_fc"] = 2.0 * widths[-1] * resnet.EMBED_DIM
-    return out
 
 
 def segment_shapes(batch, res, widths=resnet.WIDTHS):
@@ -108,37 +83,21 @@ def segment_shapes(batch, res, widths=resnet.WIDTHS):
 
 
 def build_segments(cnn, compute_dtype=torch.bfloat16, stem="cudnn"):
-    """``[(name, fn)]`` for each forward segment, the ops of
-    ``ResNet26.forward`` cut at its stages. The stem takes NHWC tiles
-    (float, or uint8 with ``stem="kernel"``) and returns NCHW
-    (``channels_last``) activations; each stage takes and returns them;
-    pool_fc returns the embeddings [B, embed_dim]."""
-    act = N.leaky_relu
-
+    """``[(name, fn)]`` for each forward segment, the ResNet's own pieces.
+    The stem takes NHWC tiles (float, or uint8 with ``stem="kernel"``) and
+    returns NCHW (``channels_last``) activations; each stage takes and
+    returns them; pool_fc returns the embeddings [B, embed_dim]."""
     def run_stem(x):
         if stem == "kernel":
-            h = u8_stem.stem_u8_conv(cnn.conv1, x, alpha=SERVE_ALPHA,
-                                     beta=SERVE_BETA)
-            if compute_dtype is not None:
-                h = h.to(compute_dtype)
-            h = h.permute(0, 3, 1, 2)
-        else:
-            h = N.conv2d_nchw(x.contiguous().permute(0, 3, 1, 2),
-                              cnn.conv1.weight, cnn.conv1.bias, stride=2,
-                              padding=3, compute_dtype=compute_dtype)
-        return F.max_pool2d(act(h), 3, 2, 1)
+            return cnn.stem_u8(x, alpha=SERVE_ALPHA, beta=SERVE_BETA,
+                               compute_dtype=compute_dtype)
+        return cnn.stem(x.contiguous(), compute_dtype=compute_dtype)
 
     def make_stage(si):
-        def run(x):
-            h = x
-            for block in cnn.stages()[si]:
-                h = block(h, compute_dtype)
-            return h
-        return run
+        return lambda x: cnn.run_stage(si, x, compute_dtype=compute_dtype)
 
     def pool_fc(x):
-        return N.linear(x.mean(dim=(2, 3)), cnn.fc.weight.T,
-                        compute_dtype=compute_dtype)
+        return cnn.head(x, compute_dtype=compute_dtype)[1]
 
     return [("stem", run_stem), ("stage1", make_stage(0)),
             ("stage2", make_stage(1)), ("stage3", make_stage(2)),
@@ -147,11 +106,10 @@ def build_segments(cnn, compute_dtype=torch.bfloat16, stem="cudnn"):
 
 def full_forward(cnn, stem="cudnn", compute_dtype=torch.bfloat16):
     """The whole forward the stem choice runs: ``ResNet26.forward`` or
-    ``u8_stem_extract``."""
+    ``ResNet26.forward_u8``."""
     if stem == "kernel":
-        return lambda x: u8_stem.u8_stem_extract(
-            cnn, x, alpha=SERVE_ALPHA, beta=SERVE_BETA,
-            compute_dtype=compute_dtype)
+        return lambda x: cnn.forward_u8(x, alpha=SERVE_ALPHA, beta=SERVE_BETA,
+                                        compute_dtype=compute_dtype)
     return lambda x: resnet.apply_resnet26(cnn, x,
                                            compute_dtype=compute_dtype)
 
