@@ -768,27 +768,46 @@ def check_stem_kernel(conv1):
     conventions: max|diff| <= 1e-4 x max|ref|. Both sides form exact
     float32 products of bf16 operands, so only the order of the sums
     differs. Then the wrapper refuses, on the card, what the kernel does
-    not take, launching nothing. Returns the worst absolute error."""
-    worst = 0.0
+    not take, launching nothing. At each B and convention the pooled
+    kernel (``stem_u8_pool``) equals the stem kernel's output cast to
+    bf16, LeakyReLU and max-pool 3/2/1 bit for bit, and lies within one
+    bf16 ulp of max|ref| of its own plain version
+    (``stem_u8_pool_reference``, whose float32 sums differ from the
+    kernel's in their order alone). Returns the worst absolute error of
+    each kernel, the stem kernel's and the pooled kernel's."""
+    worst = worst_pooled = 0.0
     dev = conv1.weight.device
     for i, b in enumerate(STEM_B):
         x = stem_tiles(b, 200 + i, dev)
         for alpha, beta in STEM_CONVENTIONS:
             got = u8_stem.stem_u8_conv(conv1, x, alpha=alpha, beta=beta)
+            pooled = u8_stem.stem_u8_pool(conv1, x, alpha=alpha, beta=beta)
+            same = torch.equal(pooled, u8_stem.pool_epilogue(got))
             torch.cuda.synchronize()
             want = u8_stem.stem_u8_conv_reference(conv1, x, alpha=alpha,
                                                   beta=beta)
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            ok = tuple(got.shape) == tuple(want.shape) and err <= 1e-4 * scale
+            shape_ok = tuple(got.shape) == tuple(want.shape)
+            del got, want
+            want_p = u8_stem.stem_u8_pool_reference(conv1, x, alpha=alpha,
+                                                    beta=beta)
+            err_p = float((pooled.float() - want_p.float()).abs().max())
+            scale_p = float(want_p.float().abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(scale_p)) - 7)
+            ok = (shape_ok and tuple(pooled.shape) == tuple(want_p.shape)
+                  and err <= 1e-4 * scale and same and err_p <= ulp)
             emit({"phase": "stem_kernel_vs_plain", "B": b, "alpha": alpha,
                   "beta": beta, "max_abs_err": err, "max_abs_ref": scale,
-                  "rel_err": err / scale, "tol_rel": 1e-4, "ok": ok})
+                  "rel_err": err / scale, "tol_rel": 1e-4,
+                  "pooled_equals_composition": same,
+                  "pooled_max_abs_err": err_p, "pooled_max_abs_ref": scale_p,
+                  "pooled_tol_abs": ulp, "ok": ok})
             if not ok:
-                raise AssertionError(f"u8_stem kernel disagrees at B={b}, "
+                raise AssertionError(f"u8_stem kernels disagree at B={b}, "
                                      f"alpha={alpha}, beta={beta}")
-            worst = max(worst, err)
-            del got, want
+            worst, worst_pooled = max(worst, err), max(worst_pooled, err_p)
+            del pooled, want_p
     z = functools.partial(torch.zeros, device=dev)
     cases = {"float32 tiles": (conv1, z((1, 300, 300, 3))),
              "299 px tiles": (conv1, z((1, 299, 299, 3), dtype=torch.uint8)),
@@ -796,28 +815,32 @@ def check_stem_kernel(conv1):
                                                        device=dev),
                                        z((1, 300, 300, 3), dtype=torch.uint8)),
              "no tiles": (conv1, z((0, 300, 300, 3), dtype=torch.uint8))}
-    n = u8_stem.LAUNCHES
+    n = u8_stem.LAUNCHES + u8_stem.POOLED_LAUNCHES
     refused = []
     for name, (c, x) in cases.items():
-        try:
-            u8_stem.stem_u8_conv(c, x, alpha=1.0, beta=0.0)
-        except ValueError:
-            refused.append(name)
+        for stem in (u8_stem.stem_u8_conv, u8_stem.stem_u8_pool):
+            try:
+                stem(c, x, alpha=1.0, beta=0.0)
+            except ValueError:
+                refused.append(f"{stem.__name__}: {name}")
+    launched = u8_stem.LAUNCHES + u8_stem.POOLED_LAUNCHES - n
     emit({"phase": "stem_rejections", "refused": refused,
-          "launched": u8_stem.LAUNCHES - n})
-    if len(refused) != len(cases) or u8_stem.LAUNCHES != n:
+          "launched": launched})
+    if len(refused) != 2 * len(cases) or launched:
         raise AssertionError("the u8_stem wrapper took an input it must "
                              "refuse")
-    return worst
+    return worst, worst_pooled
 
 
-def stem_bound_ms(b):
+def stem_bound_ms(b, pooled=False):
     """Least time on the card for the stem of b tiles: the uint8 input,
-    weights and bias read once and the float32 output written once, over
-    the memory rate; or its 2 x 22,500 x 20 x 147 operations a tile over
-    the bf16 tensor-core peak (its operands are bf16)."""
+    weights and bias read once and the float32 output (``pooled``: the
+    bf16 max-pooled [75, 75, 20] a tile) written once, over the memory
+    rate; or its 2 x 22,500 x 20 x 147 operations a tile over the bf16
+    tensor-core peak (its operands are bf16)."""
+    out_bytes = 2 * 75 * 75 * 20 if pooled else 4 * 150 * 150 * 20
     bytes_moved = (b * 300 * 300 * 3 + 4 * (20 * 147 + 20)
-                   + 4 * b * 150 * 150 * 20)
+                   + b * out_bytes)
     ops = 2 * b * 150 * 150 * 20 * 147
     by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
@@ -828,12 +851,15 @@ def stem_ab(cnn, card, rounds=4, iters=5):
     """The counterpart of tools/exp_stem_pallas.py on the card, at
     STEM_AB_TILES uint8 tiles, in interleaved rounds (A B B A): the stem
     alone (cuDNN conv of the normalized bf16 input, LeakyReLU, max-pool vs
-    the kernel, LeakyReLU, max-pool: ``ResNet26.stem`` vs ``stem_u8``) and
-    the whole extractor (``ResNet26.forward`` vs ``forward_u8``). Then the
-    kernel's row: its device time from torch.profiler, its bound, the
+    ``stem_u8``, the pooled kernel's one launch, vs the composition it
+    replaced: the stem kernel, the cast, LeakyReLU, max-pool) and the
+    whole extractor (``ResNet26.forward`` vs ``forward_u8``). Then the
+    stem kernel's row: its device time from torch.profiler, its bound, the
     plain version's time and the library yardstick, cuDNN's ``F.conv2d``
     on the normalized bf16 input (the stem conv the default serving path
-    runs; the kernel path never calls it)."""
+    ran before the kernels; neither kernel's path calls it); and under
+    the pooled kernel's row, its device time beside its bound, the
+    composition's and the plain version's. Returns the two rows."""
     b = STEM_AB_TILES
     bf = torch.bfloat16
     x = stem_tiles(b, 300, cnn.conv1.weight.device)
@@ -845,6 +871,9 @@ def stem_ab(cnn, card, rounds=4, iters=5):
     def stem_kernel():
         return cnn.stem_u8(x, compute_dtype=bf, **kw)
 
+    def stem_composition():
+        return u8_stem.pool_epilogue(u8_stem.stem_u8_conv(cnn.conv1, x, **kw))
+
     def full_cudnn():
         return resnet.apply_resnet26(cnn, transforms.normalize_u8(x),
                                      compute_dtype=bf)
@@ -853,11 +882,14 @@ def stem_ab(cnn, card, rounds=4, iters=5):
         return cnn.forward_u8(x, compute_dtype=bf, **kw).float()
 
     variants = {"stem/cudnn": stem_cudnn, "stem/kernel": stem_kernel,
+                "stem/composition": stem_composition,
                 "full/cudnn": full_cudnn, "full/kernel": full_kernel}
-    n = u8_stem.LAUNCHES
+    n = u8_stem.LAUNCHES, u8_stem.POOLED_LAUNCHES
     with torch.no_grad():
         d_stem = float((stem_kernel().float() - stem_cudnn().float())
                        .abs().max())
+        same = torch.equal(stem_kernel().permute(0, 2, 3, 1),
+                           stem_composition())
         ref = full_cudnn().float()
         d_full = float((full_kernel() - ref).abs().max()) / float(
             ref.abs().max())
@@ -873,6 +905,9 @@ def stem_ab(cnn, card, rounds=4, iters=5):
           "tiles_per_s": {k: b / (v / 1e3) for k, v in med.items()},
           "kernel_over_cudnn_stem": med["stem/cudnn"] / med["stem/kernel"],
           "kernel_over_cudnn_full": med["full/cudnn"] / med["full/kernel"],
+          "pooled_over_composition": (med["stem/composition"]
+                                      / med["stem/kernel"]),
+          "pooled_equals_composition": same,
           "stem_max_abs_diff_bf16": d_stem, "features_rel_diff": d_full,
           "all_ms": times, **card})
 
@@ -890,13 +925,34 @@ def stem_ab(cnn, card, rounds=4, iters=5):
         def library():
             return F.conv2d(xn, w, bias, stride=2, padding=3)
 
+        def pooled():
+            return u8_stem.stem_u8_pool(conv1, x, **kw)
+
+        def pooled_plain():
+            return u8_stem.stem_u8_pool_reference(conv1, x, **kw)
+
         ms, how = device_ms(kernel, 10, match="u8_stem_kernel")
         wrapper_ms = time_cuda(kernel, 10)
         plain_ms = time_cuda(plain, 5)
         plain_device, how_plain = device_ms(plain, 3)
         library_ms = time_cuda(library, 10)
         library_device, how_library = device_ms(library, 10)
-    u8_stem.LAUNCHES = n  # timing launches are not the main path's
+        p_ms, p_how = device_ms(pooled, 10, match="u8_stem_pool_kernel")
+        p_wrapper_ms = time_cuda(pooled, 10)
+        composition_ms = time_cuda(stem_composition, 10)
+        composition_device, how_composition = device_ms(stem_composition, 10)
+        p_plain_ms = time_cuda(pooled_plain, 5)
+    # timing launches are not the main path's
+    u8_stem.LAUNCHES, u8_stem.POOLED_LAUNCHES = n
+    p_bound, p_bound_by = stem_bound_ms(b, pooled=True)
+    pooled_row = {"ms": p_ms, **ms_how(p_how), "wrapper_ms": p_wrapper_ms,
+                  "bound_ms": p_bound, "bound_by": p_bound_by,
+                  "bound_share": p_bound / p_ms,
+                  "composition_ms": composition_ms,
+                  "composition_device_ms": composition_device,
+                  **ms_how(how_composition, "composition_device_ms"),
+                  "plain_ms": p_plain_ms}
+    emit({"phase": "stem_pool_time", "B": b, **pooled_row, **card})
     bound, bound_by = stem_bound_ms(b)
     row = {"ms": ms, **ms_how(how), "wrapper_ms": wrapper_ms,
            "plain_ms": plain_ms, "plain_device_ms": plain_device,
@@ -905,7 +961,7 @@ def stem_ab(cnn, card, rounds=4, iters=5):
            "library_ms": library_ms, "library_device_ms": library_device,
            **ms_how(how_library, "library_device_ms")}
     emit({"phase": "stem_time", "B": b, **row, **card})
-    return row
+    return row, pooled_row
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1178,9 +1234,11 @@ def daemon_phase(model, cfg, slides, card):
 
 def serve_u8_stem(model, cfg, big, p_big, p32_big, card):
     """The streaming slide through the uint8 stem (``transform_extract``):
-    one stem launch per chunk, one pool launch, probabilities within 1e-3
-    of the cuDNN bf16 path and the f32 path (the bf16 contract,
-    BASELINE.md:32). Returns (stem launches, pool launches)."""
+    in bf16 one launch of the pooled stem kernel per chunk and none of the
+    stem kernel alone, one pool launch, probabilities within 1e-3 of the
+    cuDNN bf16 path and the f32 path (the bf16 contract, BASELINE.md:32).
+    Returns the launches of the stem kernel (none), of the pooled stem
+    kernel and of the pool."""
     def ext(cnn, x):
         return cnn.forward_u8(x, alpha=SERVE_ALPHA, beta=SERVE_BETA,
                               compute_dtype=torch.bfloat16).float()
@@ -1190,33 +1248,36 @@ def serve_u8_stem(model, cfg, big, p_big, p32_big, card):
             model, cfg, big, resolution=300, chunk=1024,
             compute_dtype=torch.bfloat16, transform_extract=ext)
 
-    u8_stem.LAUNCHES = 0
+    u8_stem.LAUNCHES = u8_stem.POOLED_LAUNCHES = 0
     gated_pool.LAUNCHES = 0
     probs, outs, coords = fn()
     torch.cuda.synchronize()
-    stem_launches, pool_launches = u8_stem.LAUNCHES, gated_pool.LAUNCHES
+    stem_launches, pooled_launches, pool_launches = (
+        u8_stem.LAUNCHES, u8_stem.POOLED_LAUNCHES, gated_pool.LAUNCHES)
     T = big.getsize()
     chunks = -(-T // 1024)
     check_probs("u8_stem streaming", probs, cfg.n_classes)
     d_cudnn = float(np.abs(probs - p_big).max())
     d_f32 = float(np.abs(probs - p32_big).max())
     emit({"phase": "serve_u8_stem", "tiles": T, "chunks": chunks,
-          "stem_launches": stem_launches, "pool_launches": pool_launches,
+          "stem_launches": stem_launches,
+          "stem_pool_launches": pooled_launches,
+          "pool_launches": pool_launches,
           "probs": probs.tolist(), "vs_cudnn_bf16": d_cudnn,
           "vs_f32": d_f32, "tol": 1e-3})
-    if (stem_launches != chunks or pool_launches != 1
+    if (pooled_launches != chunks or stem_launches or pool_launches != 1
             or outs["Aterm"].shape != (3, T) or coords.shape != (T, 2)):
         raise AssertionError("the uint8-stem path did not launch one stem "
                              "kernel per chunk and one pool")
     if d_cudnn > 1e-3 or d_f32 > 1e-3:
         raise AssertionError("the uint8-stem path misses the bf16 contract")
-    n_stem, n_pool = u8_stem.LAUNCHES, gated_pool.LAUNCHES
+    n_pooled, n_pool = u8_stem.POOLED_LAUNCHES, gated_pool.LAUNCHES
     s_u8 = timed(fn)
     emit({"phase": "serve_u8_stem_time", "tiles": T, "seconds": s_u8,
           "tiles_per_s": T / s_u8, **card})
     trace("classify_slide_streaming u8_stem", fn, card)
-    u8_stem.LAUNCHES, gated_pool.LAUNCHES = n_stem, n_pool
-    return stem_launches, pool_launches
+    u8_stem.POOLED_LAUNCHES, gated_pool.LAUNCHES = n_pooled, n_pool
+    return stem_launches, pooled_launches, pool_launches
 
 
 # ---------------------------------------------------------------- training
@@ -4756,9 +4817,9 @@ def tools_phase(card):
                                  f" of the calibration (stem {stem}): "
                                  f"{shares}")
         stages[stem] = row
-    if stages["kernel"]["stem_launches"] < 1:
-        raise AssertionError("tools: --stem kernel never launched the stem "
-                             "kernel")
+    if stages["kernel"]["stem_pool_launches"] < 1:
+        raise AssertionError("tools: --stem kernel never launched the "
+                             "pooled stem kernel")
     train = rows["profile_train"][-1]
     gan_1024 = rows["exp_gan512_1024px"][-1]
     if not (gan_1024["fit"] and math.isfinite(gan_1024["disc_loss"])
@@ -4775,6 +4836,8 @@ def tools_phase(card):
     bwd = {"tools_profile_train": train["pool_bwd_launches"]}
     stem = {"tools_profile_stages_kernel": stages["kernel"]["stem_launches"],
             **late["stem"]}
+    stem_pool = {"tools_profile_stages_kernel":
+                 stages["kernel"]["stem_pool_launches"], **late["stem_pool"]}
     if min(*fwd.values(), *bwd.values()) < 1:
         raise AssertionError(f"tools: the pool's kernels never launched: "
                              f"{fwd} {bwd}")
@@ -4797,11 +4860,13 @@ def tools_phase(card):
           "pool_T": sorted(fwd_t), "pool_bwd_T": sorted(bwd_t),
           "unchecked_T": unchecked, "launches": {"forward": fwd,
                                                  "backward": bwd,
-                                                 "stem": stem}, **card})
+                                                 "stem": stem,
+                                                 "stem_pool": stem_pool},
+          **card})
     if unchecked["forward"] or unchecked["backward"]:
         raise AssertionError(f"tools: pooled T never held to the plain "
                              f"pool: {unchecked}")
-    return {"fwd": fwd, "bwd": bwd, "stem": stem}
+    return {"fwd": fwd, "bwd": bwd, "stem": stem, "stem_pool": stem_pool}
 
 
 TOOLS_WORKERS = 5                # tools running at once after the health probe
@@ -4851,13 +4916,13 @@ def _probs_gap(a, b):
 
 def last_twins(rows):
     """The checks on the last twins' runs (``LAST_TWINS``; ``rows`` by
-    label): the stem kernel launched in the K x B sweep; the io twin's
+    label): the pooled stem kernel launched in the K x B sweep; the io twin's
     variants each pooled every slide, their probabilities within 1e-6;
     the hetero twin saw one chunk shape a distinct tile count, pooled
     each slide (and the prewarm chunk), its variants' probabilities
     within 1e-6; the GAN tool's record has one transition and finite
-    distances at both resolutions. Returns their pool and stem launches
-    and their pooled rows."""
+    distances at both resolutions. Returns their launches of the pool and
+    of each stem kernel, and their pooled rows."""
     mega, io_rows, hetero = (rows[k] for k in (
         "exp_megabatch", "exp_serve_io", "exp_serve_hetero"))
     gan_rec = rows["gan_convergence_schedule"][-1]
@@ -4866,8 +4931,9 @@ def last_twins(rows):
                    and "slides" in r]
     sizes = torch_exp_serve_hetero.cohort_sizes(TOOLS_HETERO_MAX)
     bad = []
-    if min(r["stem_launches"] for r in kernel_rows) < 1:
-        bad.append("the megabatch sweep never launched the stem kernel")
+    if min(r["stem_pool_launches"] for r in kernel_rows) < 1:
+        bad.append("the megabatch sweep never launched the pooled stem "
+                   "kernel")
     if (len(io_variants) != 2
             or any(r["pool_launches"] != TOOLS_IO["n"] for r in io_variants)
             or _probs_gap(*([s["probs"] for s in r["slides"]]
@@ -4895,6 +4961,8 @@ def last_twins(rows):
                                                   for r in hetero)},
             "stem": {"tools_exp_megabatch": sum(r["stem_launches"]
                                                 for r in kernel_rows)},
+            "stem_pool": {"tools_exp_megabatch": sum(r["stem_pool_launches"]
+                                                     for r in kernel_rows)},
             "pooled": [{"pool_T": r["pool_T"], "pool_bwd_T": []}
                        for r in io_variants + hetero]}
 
@@ -4983,7 +5051,7 @@ def main():
     model = amil.init_attention_mil(torch.Generator().manual_seed(0), cfg)
     max_err = check_pool_kernel()
     bwd_err = check_pool_backward()
-    stem_err = check_stem_kernel(model.cnn.conv1)
+    stem_err, stem_pool_err = check_stem_kernel(model.cnn.conv1)
 
     # phase 3: full-width serving on synthetic slides
     os.makedirs(CACHE, exist_ok=True)
@@ -5085,9 +5153,10 @@ def main():
         launches["serve_daemon"] = daemon_phase(model, cfg, slides, card)
 
         # the streaming slide through the uint8 stem kernel
-        stem_launches, launches["classify_slide_streaming_u8_stem"] = \
-            serve_u8_stem(model, cfg, big, p_big, p32_big, card)
-        stem_row = stem_ab(model.cnn, card)
+        (stem_launches, stem_pool_launches,
+         launches["classify_slide_streaming_u8_stem"]) = serve_u8_stem(
+            model, cfg, big, p_big, p32_big, card)
+        stem_row, stem_pool_row = stem_ab(model.cnn, card)
 
         # training at full width through the trainer's CLI, on a cohort
         # that reuses the serving slides' caches (the daemon built the
@@ -5179,6 +5248,16 @@ def main():
         "shape": {"B": STEM_AB_TILES, "H": 300, "W": 300, "C": 3},
         "launches_by_path": {"classify_slide_streaming_u8_stem":
                              stem_launches, **tool_counts["stem"]}}, {
+        "name": "stem_u8_pool", "route": "cuda",
+        "source": f"{PORT}/csrc/u8_stem.cu",
+        "replaces": f"{JAX_PKG}/ops/pallas_stem.py:69",
+        "launches": (stem_pool_launches
+                     + sum(tool_counts["stem_pool"].values())),
+        "max_abs_err": stem_pool_err, **stem_pool_row,
+        "shape": {"B": STEM_AB_TILES, "H": 300, "W": 300, "C": 3},
+        "launches_by_path": {"classify_slide_streaming_u8_stem":
+                             stem_pool_launches,
+                             **tool_counts["stem_pool"]}}, {
         "name": "gated_attention_pool_backward", "route": "cuda",
         "source": f"{PORT}/csrc/gated_pool.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_pool.py:118",

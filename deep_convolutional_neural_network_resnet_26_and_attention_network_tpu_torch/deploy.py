@@ -9,8 +9,10 @@ Counterpart of ``deploy.py`` in the JAX package, in PyTorch's idiom.
     ``[N, L]``, the streaming path's per-chunk program
     (``parallel.inference.make_transform_extract``), N from 1 to ``chunk``:
     on the card at a roi and resolution of 300 in bf16 the ResNet-26's
-    uint8 entry, whose fused stem is the ``torch.library`` op of
-    ``ops/u8_stem.py``; elsewhere the eval transform then the ResNet-26;
+    uint8 entry, whose fused stem is the ``torch.library`` op
+    ``POOL_OP`` of ``ops/u8_stem.py`` (the stem with its LeakyReLU and
+    max-pool; bundles exported before it hold ``OP``, which still loads);
+    elsewhere the eval transform then the ResNet-26;
   * ``pool.pt2``: features ``[T, L]`` -> the head's outputs
     (``models.attention_mil.attention_pool``), T from 1 to ``tiles``. The
     gated pool in it is the ``torch.library`` op of ``ops/gated_pool.py``,

@@ -21,8 +21,9 @@ backward pass (``torch.utils.checkpoint``, as the JAX package's
 
 Two entries run the one trunk (the stages, the pool and ``fc``):
 ``forward`` on float tiles through cuDNN's stem, and ``forward_u8`` on
-uint8 tiles through the fused stem of ``ops/u8_stem.py``, which the
-streaming path's chunk program takes on the card. ``stem``, ``stem_u8``,
+uint8 tiles through the fused stem of ``ops/u8_stem.py`` (in bf16 the
+stem and its LeakyReLU and max-pool in one launch), which the streaming
+path's chunk program takes on the card. ``stem``, ``stem_u8``,
 ``run_stage`` and ``head`` are the pieces, which the per-stage profile
 times one by one.
 """
@@ -38,6 +39,7 @@ from .._device import resolve_device
 from ..ops import init as I
 from ..ops import nn as N
 from ..ops import u8_stem
+from ..utils import profiling
 
 WIDTHS = (20, 40, 60, 80)
 BLOCKS_PER_STAGE = (3, 3, 3, 3)
@@ -135,10 +137,18 @@ class ResNet26(nn.Module):
         return F.max_pool2d((act_fn or N.leaky_relu)(h), 3, 2, 1)
 
     def stem_u8(self, x_u8, *, alpha, beta, compute_dtype=None):
-        """The fused stem on uint8 NHWC tiles: ``ops/u8_stem.stem_u8_conv``
-        (the normalize ``x * alpha + beta`` and the conv in one launch on
-        the card), its float32 output cast to ``compute_dtype``, LeakyReLU,
-        max-pool 3/2/1; returns NCHW (``channels_last``) activations."""
+        """The fused stem on uint8 NHWC tiles; returns NCHW
+        (``channels_last``) activations. In bf16 one launch on the card
+        does it all, ``ops/u8_stem.stem_u8_pool`` (the normalize ``x *
+        alpha + beta``, the conv, the cast to bf16, LeakyReLU and the
+        max-pool 3/2/1), and the tiles count as ``stem.pooled_tiles``.
+        In any other ``compute_dtype`` ``ops/u8_stem.stem_u8_conv`` (the
+        normalize and the conv), then its float32 output cast to
+        ``compute_dtype``, LeakyReLU, max-pool 3/2/1."""
+        if compute_dtype == torch.bfloat16:
+            h = u8_stem.stem_u8_pool(self.conv1, x_u8, alpha=alpha, beta=beta)
+            profiling.count("stem.pooled_tiles", x_u8.shape[0])
+            return h.permute(0, 3, 1, 2)
         h = u8_stem.stem_u8_conv(self.conv1, x_u8, alpha=alpha, beta=beta)
         if compute_dtype is not None:
             h = h.to(compute_dtype)

@@ -162,6 +162,17 @@ def test_json_has_the_twins_keys_and_the_calibration_share(capsys):
     assert row["pool_launches"] == row["stem_launches"] == 0
 
 
+def test_kernel_stem_json_times_the_composition_beside_the_stem(capsys):
+    """``--stem kernel`` adds the seconds of the composition that the bf16
+    stem's one launch replaces (the stem kernel, the cast, LeakyReLU and
+    max-pool); on the CPU neither stem kernel launches."""
+    assert tool.main(["--device", "cpu", "--batch", "1", "--res", "300",
+                      "--iters", "1", "--stem", "kernel", "--json"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["stem"] == "kernel" and row["stem_composition_sec"] > 0
+    assert row["stem_launches"] == row["stem_pool_launches"] == 0
+
+
 def test_train_decomposition_runs_on_the_cpu(capsys):
     tool.main(["--device", "cpu", "--train", "--tiles-per-bag", "10",
                "--res", "32", "--iters", "2", "--json"])

@@ -10,6 +10,9 @@ runs it. Tolerances:
   computed with float32 weights, while its products use bf16 weights; the
   port's output stays float32. One bf16 rounding is up to 2^-8 = 3.9e-3
   relative.
+* the pooled stem (the stem, its cast to bf16, LeakyReLU and max-pool in
+  one op) vs the JAX stem and that epilogue: 1e-2 x max|ref|, the stems'
+  5e-3 and one more bf16 rounding of each side.
 * plain vs the float32 conv of the float32-normalized input: 2e-2 x
   max|ref|, JAX's own bound for its stem (bf16 operands).
 * the whole extractor (``ResNet26.forward_u8`` vs JAX's ``fwd_b`` composition
@@ -83,6 +86,32 @@ def test_plain_stem_matches_pallas(nets, tiles, alpha, beta):
     scale = float(np.abs(want).max())
     err = float(np.abs(got.numpy() - want).max())
     assert err <= 5e-3 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("alpha,beta", CONVENTIONS)
+def test_pooled_stem_matches_pallas_and_its_epilogue(nets, tiles, alpha,
+                                                     beta):
+    """The pooled op (on the CPU its plain version) against the JAX stem
+    followed by the epilogue the JAX ResNet runs after it (cast to bf16,
+    LeakyReLU, max-pool 3/2/1): within 1e-2 x max|ref|, the stems' 5e-3
+    and one more bf16 rounding of each side (2^-8 relative each; measured
+    on this input: 3.0e-3 and 5.2e-3)."""
+    jp, cnn = nets
+    h = pallas_stem.stem_u8_conv(jp["conv1"], jnp.asarray(tiles),
+                                 alpha=alpha, beta=beta, interpret=True)
+    h = JN.leaky_relu(h.astype(jnp.bfloat16))
+    want = np.asarray(JN.max_pool(h, window=3, stride=2, padding=1),
+                      np.float32)
+    n = u8_stem.POOLED_LAUNCHES
+    got = u8_stem.stem_u8_pool(cnn.conv1, torch.from_numpy(tiles),
+                               alpha=alpha, beta=beta)
+    assert u8_stem.POOLED_LAUNCHES == n  # the CPU path launches no kernel
+    assert tuple(got.shape) == want.shape == (2, 75, 75, 20)
+    assert got.dtype == torch.bfloat16
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.float().numpy() - want).max())
+    print(f"max|diff| {err:.3e} max|ref| {scale:.3e}")
+    assert err <= 1e-2 * scale, (err, scale)
 
 
 @pytest.mark.parametrize("alpha,beta", CONVENTIONS)

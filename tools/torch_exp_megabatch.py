@@ -16,7 +16,9 @@ cudnn,kernel``), each with fresh tiles drawn on the device from a seeded
 ``torch.Generator``, so drift between rounds lands on every config alike.
 Each config is run once first, untimed. One JSON line a stem and config:
 the median tiles/s (with every round's), the peak device memory of its
-rounds, the stem kernel's launches, and the card's name and power limit.
+rounds, the launches of each stem kernel (``stem_launches`` the stem
+alone, ``stem_pool_launches`` the one that also pools, which bf16 takes),
+and the card's name and power limit.
 
 Usage:
     python tools/torch_exp_megabatch.py [--rounds 3] [--configs 8x1024,4x2048]
@@ -78,8 +80,8 @@ def make_tiles(K, B, res, seed, device):
 
 def sweep(configs, rounds, stems, res, device):
     """The rows, one a stem and config: median and every round's tiles/s,
-    peak GB, and the stem kernel's launches (the untimed first call's
-    included)."""
+    peak GB, and the launches of each stem kernel (the untimed first
+    call's included)."""
     if "kernel" in stems and res != u8_stem.H_IN:
         raise SystemExit(f"--stem kernel takes {u8_stem.H_IN} px tiles "
                          f"only; got --res {res}")
@@ -90,12 +92,13 @@ def sweep(configs, rounds, stems, res, device):
     cases = [(stem, K, B) for stem in stems for K, B in configs]
     rates = {c: [] for c in cases}
     peaks = {c: 0 for c in cases}
-    launches = {c: 0 for c in cases}
+    launches = {c: [0, 0] for c in cases}
 
-    def run(case, x):
-        n0 = u8_stem.LAUNCHES
+    def run(case, x):  # launches of the stem kernel and the pooled one
+        n0 = u8_stem.LAUNCHES, u8_stem.POOLED_LAUNCHES
         out = megabatch(fwds[case[0]], x)
-        launches[case] += u8_stem.LAUNCHES - n0
+        launches[case][0] += u8_stem.LAUNCHES - n0[0]
+        launches[case][1] += u8_stem.POOLED_LAUNCHES - n0[1]
         return out
 
     with torch.no_grad():
@@ -123,7 +126,8 @@ def sweep(configs, rounds, stems, res, device):
              "res": res, "median_tiles_per_s": statistics.median(rates[c]),
              "tiles_per_s": rates[c],
              "peak_mem_gb": peaks[c] / 1e9 if cuda else None,
-             "stem_launches": launches[c]} for c in cases]
+             "stem_launches": launches[c][0],
+             "stem_pool_launches": launches[c][1]} for c in cases]
 
 
 def build_argparser():

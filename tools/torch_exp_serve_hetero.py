@@ -176,7 +176,8 @@ def run_variant(tag, slides, out_root, args, extra, card):
         "new_shape_median_secs": statistics.median(new or secs),
         "repeat_shape_median_secs": statistics.median(
             again[r[0]] for r in rows[1:] or rows),
-        **{k: got[k] for k in ("pool_launches", "pool_T", "stem_launches")},
+        **{k: got[k] for k in ("pool_launches", "pool_T", "stem_launches",
+                                "stem_pool_launches")},
         "rows": rows, "device": device or "cuda", **card}
     print(json.dumps({k: v for k, v in res.items() if k != "rows"}),
           flush=True)

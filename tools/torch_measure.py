@@ -89,7 +89,10 @@ def time_ms(fn, device, *, iters: int = 1, repeats: int = 3,
 @contextlib.contextmanager
 def kernel_record():
     """Count the launches of the gated pool's forward and backward kernels
-    and of the uint8 stem kernel while open, and the tile counts T the pool
+    and of the uint8 stem kernels while open (``stem_launches``: the stem
+    kernel alone, ``u8_stem_kernel``; ``stem_pool_launches``: the one that
+    also pools, ``u8_stem_pool_kernel``, which the ResNet's uint8 entry
+    takes in bf16), and the tile counts T the pool
     was launched at. Only launches of the CUDA kernels count (the plain
     versions on CPU tensors do not)."""
     from deep_convolutional_neural_network_resnet_26_and_attention_network_tpu_torch.ops import (  # noqa: E501
@@ -98,9 +101,9 @@ def kernel_record():
     )
 
     rec = {"pool_launches": 0, "pool_T": set(), "pool_bwd_launches": 0,
-           "pool_bwd_T": set(), "stem_launches": 0}
+           "pool_bwd_T": set(), "stem_launches": 0, "stem_pool_launches": 0}
     real_f, real_b = gated_pool._launch, gated_pool._launch_backward
-    stem0 = u8_stem.LAUNCHES
+    stem0, pooled0 = u8_stem.LAUNCHES, u8_stem.POOLED_LAUNCHES
 
     def fwd(a_raw, *rest):
         out = real_f(a_raw, *rest)
@@ -120,6 +123,7 @@ def kernel_record():
     finally:
         gated_pool._launch, gated_pool._launch_backward = real_f, real_b
         rec["stem_launches"] = u8_stem.LAUNCHES - stem0
+        rec["stem_pool_launches"] = u8_stem.POOLED_LAUNCHES - pooled0
 
 
 def launches_json(rec) -> dict:

@@ -16,7 +16,10 @@ The segments are the ResNet's own pieces (``stem``, ``run_stage``,
 kernel`` its uint8 entry, ``ResNet26.forward_u8``, whose stem is
 ``<port>/ops/u8_stem.py`` (``csrc/u8_stem.cu``, 300 px only), in the stem
 segment and the whole forward both: the twin of
-``tools/exp_stem_pallas.py``'s A/B. The FLOP count is the same, and is
+``tools/exp_stem_pallas.py``'s A/B. In bf16 that stem is one launch that
+also pools; beside it ``--stem kernel`` times the composition it replaces
+(the stem kernel, then the cast, LeakyReLU and max-pool:
+``stem_composition_sec``). The FLOP count is the same, and is
 ``benchmark/flops.py``'s.
 
 ``--device-calibration`` prints the bf16 product rate of chained 4096^3
@@ -171,7 +174,9 @@ def _inputs(shape, device, stem, seed, compute_dtype):
 
 
 def profile_forward(batch, res, iters, device, stem="cudnn"):
-    """The per-segment and whole-forward rows, with the calibration."""
+    """The per-segment and whole-forward rows, the calibration, the launch
+    record, and with ``stem="kernel"`` the seconds of the composition that
+    the bf16 stem segment's one launch replaces (None otherwise)."""
     if stem == "kernel" and res != u8_stem.H_IN:
         raise SystemExit(f"--stem kernel takes {u8_stem.H_IN} px tiles "
                          f"only; got --res {res}")
@@ -190,9 +195,15 @@ def profile_forward(batch, res, iters, device, stem="cudnn"):
         x = _inputs(shapes["stem"], device, stem, 99, None)
         full_fn = full_forward(cnn, stem)
         full_sec = TM.time_ms(lambda: full_fn(x), device, iters=iters) / 1e3
+        composition_sec = None
+        if stem == "kernel":
+            composition_sec = TM.time_ms(
+                lambda: u8_stem.pool_epilogue(u8_stem.stem_u8_conv(
+                    cnn.conv1, x, alpha=SERVE_ALPHA, beta=SERVE_BETA)),
+                device, iters=iters) / 1e3
         del x
     calib = calibration_tflops(device)
-    return rows, full_sec, calib, rec
+    return rows, full_sec, calib, rec, composition_sec
 
 
 def profile_train(tiles_per_bag, res, iters, device, as_json=False):
@@ -295,7 +306,7 @@ def main(argv=None) -> int:
                       device, as_json=args.json)
         return 0
 
-    rows, full_sec, calib, rec = profile_forward(
+    rows, full_sec, calib, rec, composition_sec = profile_forward(
         args.batch, args.res, args.iters, device, args.stem)
     card = TM.card_record(device)
     total_gf = sum(r[2] for r in rows)
@@ -311,6 +322,7 @@ def main(argv=None) -> int:
             "full_tflops": total_gf / full_sec / 1e3,
             "full_share_of_calibration": total_gf / full_sec / 1e3 / calib,
             "tiles_per_sec": args.batch / full_sec,
+            "stem_composition_sec": composition_sec,
             "calibration_tflops": calib, "device": device.type,
             **card, **TM.launches_json(rec)}), flush=True)
         return 0
@@ -329,6 +341,9 @@ def main(argv=None) -> int:
           f"{total_gf / full_sec / 1e3:9.2f}   "
           f"({args.batch / full_sec:,.0f} tiles/s; segment sum "
           f"{(seg_sum - full_sec) * 1e3:+.2f} ms vs the whole forward)")
+    if composition_sec is not None:
+        print(f"the stem's composition (kernel, cast, LeakyReLU, max-pool): "
+              f"{composition_sec * 1e3:.2f} ms")
     print(f"calibration: {calib:.1f} TFLOP/s bf16 (chained products)")
     return 0
 
